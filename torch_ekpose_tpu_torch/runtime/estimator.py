@@ -1,0 +1,248 @@
+"""Inference runtime: padding, preprocessing and the batched estimator.
+
+Counterpart of the JAX package's ``runtime/estimator.py`` (reference
+lib/evaluate/estimator.py). A batch of uint8 BGR frames goes to the
+device, is preprocessed there, runs the vgg2016 forward in the compute
+dtype (cuDNN convs, NCHW) and the batched decode
+(``decode/device.py``); only the packed ``[B, L]`` result comes back, as
+one device->host copy per batch.
+
+Public layouts are the JAX package's: frames ``[B, H, W, 3]`` uint8,
+maps ``[B, h, w, C]``. :func:`nhwc_to_nchw` / :func:`nchw_to_nhwc` are the
+one place the layouts change.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from torch_ekpose_tpu import constants
+from torch_ekpose_tpu.config import Config, cfg as default_cfg
+from torch_ekpose_tpu.utils.human import Human
+from torch_ekpose_tpu_torch.decode import device as decode_device
+from torch_ekpose_tpu_torch.models.factory import get_model, init_model
+from torch_ekpose_tpu_torch.ops.resize import resize_image_np
+
+__all__ = [
+    "PoseEstimator", "nchw_to_nhwc", "nhwc_to_nchw", "padding",
+    "precision_mode", "preprocess",
+]
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, C, H, W] (a view)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, H, W, C] (a view)."""
+    return x.permute(0, 2, 3, 1)
+
+
+#: the serving precision knob: "highest" turns TF32 off for the forward's
+#: cuDNN convs and matmuls, "fast" allows it (float32 compute only; the
+#: decode never uses TF32)
+PRECISIONS = ("fast", "highest")
+
+
+def precision_mode(precision: str):
+    """Context manager setting the TF32 flags for ``precision``."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be one of {PRECISIONS}, got {precision!r}"
+        )
+    return decode_device.tf32(precision == "fast")
+
+
+def _factor_closest(num: float, factor: int, is_ceil: bool = True) -> int:
+    fn = np.ceil if is_ceil else np.floor
+    return int(fn(float(num) / factor)) * factor
+
+
+def padding(
+    im: np.ndarray, dest_size: int = 368, factor: int = 8,
+    is_ceil: bool = True,
+) -> Tuple[np.ndarray, float, Tuple[int, int, int]]:
+    """Resize the long side to ``dest_size`` and zero-pad H/W up to
+    multiples of ``factor`` (reference estimator.py:52-68). cv2 when
+    present (bit-parity with the reference), else the numpy bilinear."""
+    im_scale = float(dest_size) / np.max(im.shape[0:2])
+    new_w = int(np.rint(im.shape[1] * im_scale))
+    new_h = int(np.rint(im.shape[0] * im_scale))
+    try:
+        import cv2
+
+        # fx/fy form, as the reference calls it (estimator.py:60)
+        im = cv2.resize(im, None, fx=im_scale, fy=im_scale)
+    except ImportError:
+        resized = resize_image_np(im.astype(np.float32), new_h, new_w, "linear")
+        im = (
+            np.clip(np.rint(resized), 0, 255).astype(im.dtype)
+            if np.issubdtype(im.dtype, np.integer) else resized
+        )
+
+    h, w, c = im.shape
+    im_pad = np.zeros(
+        [_factor_closest(h, factor, is_ceil),
+         _factor_closest(w, factor, is_ceil), c],
+        dtype=im.dtype,
+    )
+    im_pad[0:h, 0:w, :] = im
+    return im_pad, im_scale, im.shape
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """ImageNet (mean, std) as float32 tensors on ``device``, made once
+    (a per-call host->device copy would wait for the previous batch)."""
+    return tuple(
+        torch.tensor(v, dtype=torch.float32, device=device)
+        for v in (constants.IMAGENET_MEAN, constants.IMAGENET_STD)
+    )
+
+
+def preprocess(images: torch.Tensor, mode: str = "vgg") -> torch.Tensor:
+    """[..., H, W, 3] BGR frames (any dtype) -> float32, same layout.
+
+    - ``"vgg"``: /255, BGR->RGB, imagenet mean/std
+      (reference preprocessing.py:32-43);
+    - ``"rtpose"``: /256 - 0.5 (reference preprocessing.py:16-21).
+    """
+    x = images.float()
+    if mode == "vgg":
+        mean, std = _imagenet_stats(x.device)
+        return (x.flip(-1) / 255.0 - mean) / std
+    if mode == "rtpose":
+        return x / 256.0 - 0.5
+    raise ValueError(f"unknown preprocess mode {mode!r}")
+
+
+class PoseEstimator:
+    """Owns a model + weights on one device and serves pose inference.
+
+    ``state_dict=None`` initializes random weights from ``seed``.
+    Parameters are cast to ``compute_dtype`` once. Options the port does
+    not have yet raise ``NotImplementedError`` instead of being ignored.
+    """
+
+    def __init__(
+        self,
+        model_name: str = "vgg2016",
+        state_dict: Optional[dict] = None,
+        config: Optional[Config] = None,
+        *,
+        device,
+        compute_dtype=torch.bfloat16,
+        precision: str = "fast",
+        preprocess: str = "vgg",
+        dest_size: int = 368,
+        decode_backend: str = "device",
+        s2d_blocks: int = 0,
+        seed: int = 0,
+    ):
+        if compute_dtype in ("int8", "int8_static"):
+            raise NotImplementedError(
+                "int8 serving is not ported yet (ROADMAP Queue 1 item 9)"
+            )
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"compute_dtype must be torch.float32 or torch.bfloat16, "
+                f"got {compute_dtype!r}"
+            )
+        if decode_backend != "device":
+            raise NotImplementedError(
+                f"decode_backend={decode_backend!r}: the port decodes on "
+                "the device only; the host backends are not ported yet "
+                "(ROADMAP Queue 1 item 6)"
+            )
+        precision_mode(precision)  # validates the name
+        self.config = config or default_cfg
+        self.model_name = model_name
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.precision = precision
+        self.preprocess = preprocess
+        self.dest_size = dest_size
+        if state_dict is None:
+            model = init_model(
+                model_name, generator=torch.Generator().manual_seed(seed),
+                device=self.device, s2d_blocks=s2d_blocks,
+            )
+        else:
+            model = get_model(
+                model_name, device=self.device, s2d_blocks=s2d_blocks
+            )
+            model.load_state_dict(state_dict, strict=True)
+        # cast once: halves weight traffic and drops per-call casts
+        self.model = model.to(dtype=compute_dtype).eval()
+        self._decode = decode_device.build_packed_decoder(self.config)
+
+    # -- device program ----------------------------------------------------
+
+    @torch.inference_mode()
+    def _forward(self, images: np.ndarray):
+        """Frames -> stage-6 (paf, heatmap) as float32 NCHW on the device."""
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(
+            self.device, non_blocking=True
+        )
+        x = nhwc_to_nchw(preprocess(x, self.preprocess))
+        with precision_mode(self.precision):
+            (paf, heatmap), _ = self.model(x.to(
+                self.compute_dtype, memory_format=torch.contiguous_format
+            ))
+        return paf.float(), heatmap.float()
+
+    @torch.inference_mode()
+    def _packed(self, images: np.ndarray) -> torch.Tensor:
+        paf, heatmap = self._forward(images)
+        return self._decode(nchw_to_nhwc(heatmap), nchw_to_nhwc(paf))
+
+    # -- public API ----------------------------------------------------------
+
+    def get_outputs_batch(self, images: np.ndarray):
+        """Batched forward over same-shape padded images [B, H, W, 3] ->
+        (pafs [B, h, w, 38], heatmaps [B, h, w, 19]) float32 numpy."""
+        paf, heatmap = self._forward(images)
+        return (nchw_to_nhwc(paf).cpu().numpy(),
+                nchw_to_nhwc(heatmap).cpu().numpy())
+
+    def estimate_batch(self, images: np.ndarray) -> List[List[Human]]:
+        """Assembled people for a batch of same-shape padded images
+        [B, H, W, 3]."""
+        return self.collect_batch(self.estimate_batch_async(images))
+
+    def estimate_batch_async(self, images: np.ndarray):
+        """Enqueue a batch and its device->host copy without waiting;
+        returns a handle for :meth:`collect_batch`."""
+        b, h, w = images.shape[:3]
+        packed = self._packed(images)
+        if self.device.type != "cuda":
+            return packed, None, b, h, w
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done, b, h, w
+
+    def collect_batch(self, handle) -> List[List[Human]]:
+        """Wait for a handle from :meth:`estimate_batch_async` and convert
+        its packed buffer to Humans."""
+        packed, done, b, h, w = handle
+        if done is not None:
+            done.synchronize()
+        packed = packed.numpy()
+        return [
+            decode_device.packed_to_humans(packed[i], h, w, self.config)
+            for i in range(b)
+        ]
+
+    def estimate(self, image: np.ndarray) -> Tuple[List[Human], float]:
+        """Assembled people + im_scale for one BGR image of any size."""
+        im_pad, im_scale, _ = padding(
+            image, self.dest_size, self.config.MODEL.DOWNSAMPLE
+        )
+        return self.estimate_batch(im_pad[None])[0], im_scale
