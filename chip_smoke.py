@@ -1,27 +1,41 @@
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving path and VGG prefix path on one CUDA
+card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit; no card, no run;
-2. build the three decode kernels from ``torch_ekpose_tpu_torch/csrc``
-   with nvcc for sm_90a and print ptxas's register / shared-memory report;
-3. hold each kernel against its plain PyTorch twin on the card, exactly,
-   at the decode path's shapes, and time both (plain, kernel, kernel,
-   plain);
-4. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
+2. build the five kernels from ``torch_ekpose_tpu_torch/csrc`` with nvcc
+   for sm_90a and print ptxas's register / shared-memory report;
+3. hold each decode kernel against its plain PyTorch twin on the card,
+   exactly, at the decode path's shapes, and time both (plain, kernel,
+   kernel, plain);
+4. hold each VGG-prefix conv kernel (``conv_chain``, ``conv1_fused``,
+   ``block1_fused``) against its twin with TF32 off: float32 at the CPU
+   tests' small shapes within 1e-4 of max|twin|, bf16 at the prefix
+   path's shapes (batch 8, 368x432; blocks 1-3) within 0.02, each call
+   raising the launch count; time twin, kernel and cuDNN's bf16
+   ``channels_last`` chain in turns (helpers of
+   ``scripts/profile_torch_conv.py``, loaded by path);
+5. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
    (written by the JAX package) on the card and compare the packed
    buffers: integer fields exact, float fields within rtol 1e-5, and
    people found in every scene;
-5. ``PoseEstimator("vgg2016")`` with seeded random weights in bfloat16
+6. ``PoseEstimator("vgg2016")`` with seeded random weights in bfloat16
    serves a batch of 8 random 368x432 frames: each kernel's launch count
    must rise during that call, the maps must be finite, and the bf16 maps
    must keep cosine > 0.99 against float32 with TF32 off; the warm batch
    time is measured with CUDA events, and so is the batch-8 decode alone,
    in turns, on the forward's maps (random weights: no people) and on the
    golden scenes tiled to 8 (4, 3, 2, 3 people);
-6. ``PoseServer``: four threads ``submit()`` a frame each and
+7. the VGG prefix path: ``models.vgg.prefix_forward`` on the seeded
+   model's weights and bf16 frames, once per block-1 route, with the conv
+   kernels' counts set to 0 before and read after (each must have
+   launched); each route against ``backbone[:19]`` on cuDNN (bf16: within
+   0.05 of max|cuDNN|; float32, TF32 off: cosine > 0.999); then the
+   conv_chain route and cuDNN timed in turns;
+8. ``PoseServer``: four threads ``submit()`` a frame each and
    ``GET /healthz`` answers.
 
 The line before the last is the kernels' JSON record, the one before it
@@ -30,9 +44,9 @@ the card's name and power limit; the last line is the result JSON.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -42,44 +56,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.join(ROOT, "tests")
+SCRIPTS = os.path.join(ROOT, "scripts")
 GOLDEN = os.path.join(TESTS, "data", "torch_decode_golden.npz")
 BATCH, HEIGHT, WIDTH = 8, 368, 432
 K, CAP = 32, 96
 SEED = 0
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def alternate(plain, kernel, reps: int):
-    """(plain_ms, kernel_ms), measured in turns plain, kernel, kernel, plain."""
-    p1 = time_ms(plain, reps)
-    k1 = time_ms(kernel, reps)
-    k2 = time_ms(kernel, reps)
-    p2 = time_ms(plain, reps)
-    return (p1 + p2) / 2, (k1 + k2) / 2
 
 
 def max_abs_err(got, want) -> float:
@@ -99,8 +80,11 @@ def max_abs_err(got, want) -> float:
     return worst
 
 
-def check_kernels(torch, rng, inputs):
-    """Phase 3: each kernel == its twin on the card, with timings."""
+def check_kernels(torch, prof, rng, inputs):
+    """Phase 3: each decode kernel == its twin on the card, with timings.
+    Their bound is bytes: each input read once and each output written
+    once (the arithmetic is a few compares per byte); no single PyTorch
+    call computes any of them, so ``library_ms`` is null."""
     from torch_ekpose_tpu_torch.ops import match, merge, nms
 
     dev = torch.device("cuda")
@@ -140,22 +124,137 @@ def check_kernels(torch, rng, inputs):
               f"exact={exact} max_abs_err={err}")
         if not exact:
             raise AssertionError(f"{name} differs from its twin ({err})")
-        plain_ms, ms = alternate(lambda: plain(*kargs), lambda: kernel(*kargs),
-                                 reps=20)
-        print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
+        plain_ms, ms = prof.turns([lambda: plain(*kargs),
+                                   lambda: kernel(*kargs)], reps=20)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*kargs, *got) if torch.is_tensor(t))
+        bound, bound_by = prof.bound_ms(0, nbytes, torch.float32)
+        print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
+              f"bound {bound:.6f} ms ({nbytes} bytes)")
         results.append({
             "name": name, "route": "cuda",
             "source": f"torch_ekpose_tpu_torch/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "wrapper": kernel,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "wrapper": kernel,
         })
     if int(tables["n_valid"][0]) != 0:
         raise AssertionError("the merge check needs an empty image")
     return results
 
 
+def check_conv_kernels(torch, prof):
+    """Phase 4: the VGG-prefix conv kernels against their twins (TF32
+    off): float32 at the CPU tests' small shapes (within 1e-4 of
+    max|twin|), bf16 at the prefix path's shapes (within 0.02), each
+    launch raising its count by one; twin, kernel and cuDNN
+    (``library_ms``) timed in turns. Returns one record per kernel (its
+    times summed over the path's calls), the seeded model and frames."""
+    from torch_ekpose_tpu_torch.models.vgg import VGG19Backbone
+    from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
+
+    rng = np.random.default_rng(SEED)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    def params(chain, bias=None):
+        return [(t(3, 3, ci, co) * 0.2,
+                 t(co) * 0.1 if bias is None else torch.full(
+                     (co,), bias, device="cuda")) for ci, co in chain]
+
+    chain = (cc.conv_chain, cc.conv_chain_torch)
+    (w1, b1), (w2, b2) = params([(3, 64), (64, 64)])
+    x1 = t(1, 16, 24, 3)
+    small = [
+        ("conv_chain", "36x24 3-16-16 pool", *chain,
+         (t(2, 36, 24, 3), params([(3, 16), (16, 16)])), {"pool": True}),
+        ("conv_chain", "16x16 bias-50 border", *chain,
+         (t(2, 16, 16, 4), params([(4, 8), (8, 8)], 50.0)), {"pool": False}),
+        ("conv_chain", "16x16 three deep", *chain,
+         (t(2, 16, 16, 8), params([(8, 8)] * 3)), {"pool": False}),
+        ("conv1_fused", "16x24", block1.conv1_fused,
+         block1.conv1_fused_torch, (x1, w1, b1), {}),
+        ("block1_fused", "16x24", block1.block1_fused,
+         block1.block1_fused_torch, (x1, w1, b1, w2, b2), {}),
+    ]
+    f32_err = {}
+    with torch.no_grad():
+        for name, label, kernel, twin, args, kwargs in small:
+            _, _, rel = prof.check_case(dict(
+                name=name, label=label, kernel=kernel, twin=twin, args=args,
+                kwargs=kwargs), 1e-4)
+            f32_err[name] = max(f32_err.get(name, 0.0), rel)
+            print(f"kernel {name} float32 {label}: rel err {rel:.3e}")
+
+        torch.manual_seed(SEED)
+        model = VGG19Backbone(device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        frames = torch.randn((BATCH, HEIGHT, WIDTH, 3), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        cases = prof.prefix_cases(model, frames)
+        calls = []
+        for case in cases:
+            calls.append(prof.measure_case(case, reps=5))
+            prof.print_case(calls[-1])
+
+    replaces = {"conv_chain": "torch_ekpose_tpu/ops/pallas_conv.py:163",
+                "conv1_fused": "scripts/profile_block1.py:68",
+                "block1_fused": "scripts/profile_block1.py:149"}
+    source = {"conv_chain": "csrc/conv_chain.cu",
+              "conv1_fused": "csrc/block1.cu", "block1_fused": "csrc/block1.cu"}
+    records = []
+    for name in replaces:
+        mine = [c for c in calls if c["name"] == name]
+        slowest = max(mine, key=lambda c: c["bound_ms"])
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"torch_ekpose_tpu_torch/{source[name]}",
+            "replaces": replaces[name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["max_rel_err"] for c in mine),
+            "f32_max_rel_err": f32_err[name],
+            **{k: sum(c[k] for c in mine) for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": slowest["bound_by"],
+            "calls": [{k: c[k] for k in (
+                "shape", "input", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_rel_err", "tflops")}
+                for c in mine],
+            "wrapper": next(c for c in cases if c["name"] == name)["kernel"],
+        })
+    return records, model, frames
+
+
+def check_prefix_path(torch, prof, kernels, model, frames):
+    """Phase 7: the VGG prefix (blocks 1-3 on the model's own weights)
+    through the fused kernels, once per block-1 route, with every conv
+    kernel's launch count set to 0 just before and read just after; each
+    route against ``backbone[:19]`` on cuDNN; then timed."""
+    for rec in kernels:
+        rec["wrapper"].launches = 0
+    with torch.no_grad():
+        outs = prof.drive_prefix(model, frames)
+    torch.cuda.synchronize()
+    launches = {rec["name"]: rec["wrapper"].launches for rec in kernels}
+    print(f"prefix path: routes {sorted(outs)}, output "
+          f"{tuple(next(iter(outs.values())).shape)}, kernel launches "
+          f"{launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError("the prefix path did not run every conv kernel")
+    for rec in kernels:
+        rec["launches"] = launches[rec["name"]]
+    print(f"prefix path vs backbone[:19]: "
+          f"{prof.check_prefix(model, frames, outs)}")
+    ms, cudnn_ms = prof.time_prefix(model, frames, reps=5)
+    print(f"prefix path (conv_chain route), batch {BATCH} at "
+          f"{HEIGHT}x{WIDTH} bf16: kernels {ms:.4f} ms, cuDNN backbone[:19] "
+          f"{cudnn_ms:.4f} ms (means of 5, in turns), on {prof.card_line()}")
+
+
 def check_golden(torch, inputs):
-    """Phase 4: the port's decode on the card == the JAX package's."""
+    """Phase 5: the port's decode on the card == the JAX package's."""
     from torch_ekpose_tpu_torch.decode import device as decode_device
 
     golden = np.load(GOLDEN)
@@ -182,8 +281,8 @@ def cosine(a: np.ndarray, b: np.ndarray) -> float:
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
 
 
-def check_main_path(torch, rng, kernels):
-    """Phase 5: the estimator's batch-8 serving call on the card."""
+def check_main_path(torch, prof, rng, kernels):
+    """Phase 6: the estimator's batch-8 serving call on the card."""
     from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
 
     est = PoseEstimator("vgg2016", device="cuda",
@@ -217,7 +316,7 @@ def check_main_path(torch, rng, kernels):
     print(f"estimate_batch warm time, batch {BATCH} at {HEIGHT}x{WIDTH} bf16: "
           f"median {dev_ms[len(dev_ms) // 2]:.3f} ms (CUDA events), "
           f"min {dev_ms[0]:.3f} ms, host median "
-          f"{sorted(host)[len(host) // 2]:.3f} ms, on {card_line()}")
+          f"{sorted(host)[len(host) // 2]:.3f} ms, on {prof.card_line()}")
 
     paf16, heat16 = est.get_outputs_batch(frames)
     ref = PoseEstimator("vgg2016", device="cuda", compute_dtype=torch.float32,
@@ -236,7 +335,7 @@ def check_main_path(torch, rng, kernels):
     return est, frames
 
 
-def time_decodes(torch, est, frames, golden):
+def time_decodes(torch, prof, est, frames, golden):
     """The batch-8 decode alone, in turns: on the forward's maps of random
     frames (seeded random weights find no people, so match accepts little
     and merge has next to nothing to do) and on the golden scenes tiled
@@ -264,17 +363,17 @@ def time_decodes(torch, est, frames, golden):
     if people != want:
         raise AssertionError(f"tiled golden decode found {people} people, "
                              f"not {want}")
-    empty_ms, people_ms = alternate(lambda: decode((paf, heat)),
-                                    lambda: decode(people_maps), reps=20)
+    empty_ms, people_ms = prof.turns([lambda: decode((paf, heat)),
+                                      lambda: decode(people_maps)], reps=20)
     print(f"decode alone, batch {BATCH} at {HEIGHT // 8}x{WIDTH // 8} maps, "
           f"mean of 20 back-to-back calls by CUDA events, in turns: "
           f"forward's maps (no people) {empty_ms:.3f} ms, golden scenes "
           f"tiled to {BATCH} (people {people}) {people_ms:.3f} ms, "
-          f"on {card_line()}")
+          f"on {prof.card_line()}")
 
 
 def check_server(est, rng):
-    """Phase 6: micro-batched submits from 4 threads and /healthz."""
+    """Phase 8: micro-batched submits from 4 threads and /healthz."""
     from torch_ekpose_tpu_torch.runtime.server import PoseServer
 
     server = PoseServer(est, port=0, max_batch=BATCH, max_wait_ms=50.0).start()
@@ -315,8 +414,12 @@ def main() -> int:
 
     sys.path.insert(0, TESTS)
     import torch_port_inputs as inputs     # seeded inputs, shared with tests
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_conv", os.path.join(SCRIPTS, "profile_torch_conv.py"))
+    prof = importlib.util.module_from_spec(spec)   # timing and conv checks
+    spec.loader.exec_module(prof)
 
-    card = card_line()
+    card = prof.card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -331,12 +434,15 @@ def main() -> int:
     _build.lib()
 
     rng = np.random.default_rng(SEED)
-    kernels = check_kernels(torch, rng, inputs)
+    kernels = check_kernels(torch, prof, rng, inputs)
+    convs, model, conv_frames = check_conv_kernels(torch, prof)
     golden = check_golden(torch, inputs)
-    est, frames = check_main_path(torch, rng, kernels)
-    time_decodes(torch, est, frames, golden)
+    est, frames = check_main_path(torch, prof, rng, kernels)
+    time_decodes(torch, prof, est, frames, golden)
+    check_prefix_path(torch, prof, convs, model, conv_frames)
     check_server(est, rng)
 
+    kernels += convs
     for rec in kernels:
         del rec["wrapper"]
     print(card)

@@ -1,0 +1,318 @@
+"""Time the VGG prefix's fused conv kernels on one CUDA card.
+
+    python scripts/profile_torch_conv.py [--batch 8] [--height 368] \
+        [--width 432] [--reps 5] [--seed 0]
+
+The port's counterpart of the JAX package's ``scripts/profile_fused_conv.py``
+and ``scripts/profile_block1.py``. With the seeded weights of the port's
+``VGG19Backbone`` and seeded bf16 frames it runs vgg2016's blocks 1, 2 and
+3 through ``conv_chain`` (each block's input is the twin's output of the
+block before), and block 1 through ``conv1_fused`` and ``block1_fused``.
+For each it prints the max error relative to max|twin| against the plain
+twin (float32 sums, TF32 off), the kernel's, the twin's and cuDNN's time
+(the same convs + bias + ReLU + pool in bf16 ``channels_last``, the
+library yardstick), the kernel's TFLOP/s and share of the 989 TFLOP/s
+bf16 peak, and its bound (from the shapes). Times are means of ``--reps``
+calls by CUDA events, in turns: twin, kernel, cuDNN, cuDNN, kernel, twin.
+
+Then the prefix path: ``prefix_forward`` with each block-1 route, against
+``backbone[:19]`` on cuDNN in bf16 ``channels_last`` and in float32 with
+TF32 off, and the conv_chain route timed against cuDNN's.
+
+``chip_smoke.py`` loads this file by path and uses its helpers. It runs
+only on a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import os
+import subprocess
+import sys
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
+
+#: NVIDIA H100 SXM, dense (data sheet): bf16 tensor cores, float32 outside
+#: them, and HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events,
+    after one warm-up call."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def turns(fns, reps: int):
+    """Mean times of ``fns``, measured in turns: in order, then reversed."""
+    first = [time_ms(fn, reps) for fn in fns]
+    second = [time_ms(fn, reps) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 convolutions in full float32 (cuDNN's default is TF32)."""
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    """(least time in ms, "operations" or "bytes") on an H100 at its
+    published peaks."""
+    ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def chain_work(x, params, out) -> tuple:
+    """(FLOPs, bytes) of a SAME 3x3 conv chain: 2 * pixels * 9 * ci * co
+    per layer; each input, weight (in x's dtype), bias (float32) and
+    output counted once."""
+    b, h, w, _ = x.shape
+    flops = sum(2 * b * h * w * 9 * wt.shape[2] * wt.shape[3]
+                for wt, _ in params)
+    nbytes = (x.numel() + out.numel() + sum(wt.numel() for wt, _ in params)) \
+        * x.element_size() + sum(bs.numel() * 4 for _, bs in params)
+    return flops, nbytes
+
+
+def cudnn_chain(params, pool: bool):
+    """The library yardstick: the chain as cuDNN convs + bias + ReLU
+    (+ max pool) in bf16 ``channels_last``; NHWC in, NCHW
+    ``channels_last`` out."""
+    import torch
+    import torch.nn.functional as F
+
+    ws = [(w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last), b.to(torch.bfloat16))
+        for w, b in params]
+
+    def run(x):
+        y = x.permute(0, 3, 1, 2)       # NHWC storage: channels_last, no copy
+        for w, b in ws:
+            y = F.relu(F.conv2d(y, w, b, padding=1), inplace=True)
+        return F.max_pool2d(y, 2, 2) if pool else y
+
+    return run
+
+
+def prefix_cases(model, x1):
+    """The prefix path's kernel calls at the shapes it gives them: blocks
+    1-3 through ``conv_chain`` (blocks 2 and 3 on the twin's output of the
+    block before), block 1 through ``conv1_fused`` and ``block1_fused``."""
+    from torch_ekpose_tpu_torch.models.vgg import chain_params
+    from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
+
+    p = [chain_params(model, blk) for blk in (1, 2, 3)]
+    with no_tf32():
+        x2 = cc.conv_chain_torch(x1, p[0], True)
+        x3 = cc.conv_chain_torch(x2, p[1], True)
+    cases = [dict(name="conv_chain", label=f"block{i + 1}",
+                  kernel=cc.conv_chain, twin=cc.conv_chain_torch,
+                  args=(x, p[i]), kwargs={"pool": True}, params=p[i],
+                  pool=True)
+             for i, x in enumerate((x1, x2, x3))]
+    cases.append(dict(name="conv1_fused", label="conv1_1",
+                      kernel=block1.conv1_fused, twin=block1.conv1_fused_torch,
+                      args=(x1, *p[0][0]), kwargs={}, params=p[0][:1],
+                      pool=False))
+    cases.append(dict(name="block1_fused", label="block1",
+                      kernel=block1.block1_fused,
+                      twin=block1.block1_fused_torch,
+                      args=(x1, *p[0][0], *p[0][1]), kwargs={}, params=p[0],
+                      pool=True))
+    return cases
+
+
+def check_case(case, tol: float) -> tuple:
+    """One launch against the twin (TF32 off): the launch count rises by
+    one and the max error is within ``tol`` of max|twin|. Returns
+    (kernel output, max_abs_err, max_rel_err)."""
+    import torch
+
+    kernel, args, kwargs = case["kernel"], case["args"], case["kwargs"]
+    before = kernel.launches
+    got = kernel(*args, **kwargs)
+    with no_tf32():
+        want = case["twin"](*args, **kwargs)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{case['name']}: launch count did not rise")
+    if got.shape != want.shape or got.dtype != want.dtype or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{case['name']}: {got.dtype} {tuple(got.shape)}"
+                             f" vs twin {want.dtype} {tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / float(want.float().abs().max())
+    if not rel <= tol:
+        raise AssertionError(f"{case['name']} {case['label']}: relative "
+                             f"error {rel} > {tol}")
+    return got, err, rel
+
+
+def measure_case(case, reps: int) -> dict:
+    """Check one case (bf16: within 0.02 of max|twin|) and time the twin,
+    the kernel and cuDNN in turns."""
+    kernel, twin, args, kwargs = (case["kernel"], case["twin"], case["args"],
+                                  case["kwargs"])
+    out, err, rel = check_case(case, 0.02)
+    x = args[0]
+    lib = cudnn_chain(case["params"], case["pool"])
+    with no_tf32():
+        plain_ms, ms, library_ms = turns(
+            [lambda: twin(*args, **kwargs), lambda: kernel(*args, **kwargs),
+             lambda: lib(x)], reps)
+    flops, nbytes = chain_work(x, case["params"], out)
+    bound, bound_by = bound_ms(flops, nbytes, x.dtype)
+    return {"name": case["name"], "shape": case["label"],
+            "input": list(x.shape), "max_abs_err": err, "max_rel_err": rel,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9,
+            "tflops": flops / ms / 1e9,
+            "peak_share": flops / ms / 1e-3 / PEAK_FLOPS["bfloat16"]}
+
+
+def print_case(r: dict) -> None:
+    print(f"{r['name']} {r['shape']} {r['input']}: rel err "
+          f"{r['max_rel_err']:.3e} (abs {r['max_abs_err']:.3e}); kernel "
+          f"{r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, cuDNN "
+          f"{r['library_ms']:.4f} ms; {r['gflop']:.1f} GFLOP, "
+          f"{r['tflops']:.1f} TFLOP/s = {100 * r['peak_share']:.1f}% of "
+          f"989; bound {r['bound_ms']:.4f} ms by {r['bound_by']}",
+          flush=True)
+
+
+def drive_prefix(model, x) -> dict:
+    """The prefix path once per block-1 route: route -> NHWC output."""
+    from torch_ekpose_tpu_torch.models.vgg import BLOCK1_ROUTES, prefix_forward
+
+    return {route: prefix_forward(model, x, route) for route in BLOCK1_ROUTES}
+
+
+def cudnn_prefix(model):
+    """``backbone[:19]`` in bf16 ``channels_last`` on cuDNN: NHWC in, NHWC
+    (a view) out."""
+    import torch
+
+    from torch_ekpose_tpu_torch.models.vgg import PREFIX_END
+
+    ref = copy.deepcopy(model.backbone[:PREFIX_END]).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    return lambda x: ref(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def check_prefix(model, x, outs: dict) -> dict:
+    """Each route against cuDNN's bf16 ``backbone[:19]`` (max error within
+    0.05 of max|cuDNN|: both round to bf16 after each of 8 layers, in
+    other places) and against float32 with TF32 off (cosine > 0.999, and
+    cuDNN's bf16 cosine beside it)."""
+    import torch
+
+    from torch_ekpose_tpu_torch.models.vgg import PREFIX_END
+
+    with torch.no_grad(), no_tf32():
+        ref16 = cudnn_prefix(model)(x).float()
+        ref32 = model.backbone[:PREFIX_END](
+            x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def cos(a, b):
+        a, b = a.double().ravel(), b.double().ravel()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    report = {"cudnn_bf16_cosine_vs_f32": cos(ref16, ref32)}
+    for route, out in outs.items():
+        if out.shape != ref16.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"prefix {route}: {tuple(out.shape)}")
+        rel = float((out.float() - ref16).abs().max() / ref16.abs().max())
+        c = cos(out.float(), ref32)
+        report[route] = {"rel_err_vs_cudnn_bf16": rel, "cosine_vs_f32": c}
+        if not (rel <= 0.05 and c > 0.999):
+            raise AssertionError(f"prefix {route}: rel {rel}, cosine {c}")
+    return report
+
+
+def time_prefix(model, x, reps: int) -> tuple:
+    """(kernels ms, cuDNN ms): the conv_chain route of the prefix path
+    against cuDNN's bf16 ``channels_last`` ``backbone[:19]``, in turns."""
+    import torch
+
+    from torch_ekpose_tpu_torch.models.vgg import prefix_forward
+
+    ref = cudnn_prefix(model)
+    with torch.no_grad():
+        ms, cudnn_ms = turns([lambda: prefix_forward(model, x),
+                              lambda: ref(x)], reps)
+    return ms, cudnn_ms
+
+
+def main(argv=None) -> int:
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from torch_ekpose_tpu_torch.models.vgg import VGG19Backbone
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--height", type=int, default=368)
+    parser.add_argument("--width", type=int, default=432)
+    parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_conv: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+
+    torch.manual_seed(args.seed)
+    model = VGG19Backbone(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    x = torch.randn((args.batch, args.height, args.width, 3), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        results = [measure_case(case, args.reps)
+                   for case in prefix_cases(model, x)]
+        for r in results:
+            print_case(r)
+        report = check_prefix(model, x, drive_prefix(model, x))
+        print(f"prefix path vs backbone[:19]: {report}")
+        ms, cudnn_ms = time_prefix(model, x, args.reps)
+    gflop = sum(r["gflop"] for r in results if r["name"] == "conv_chain")
+    print(f"prefix path (blocks 1-3, conv_chain route), batch {args.batch} "
+          f"at {args.height}x{args.width} bf16: kernels {ms:.4f} ms, cuDNN "
+          f"{cudnn_ms:.4f} ms; {gflop:.1f} GFLOP = {gflop / ms:.1f} vs "
+          f"{gflop / cudnn_ms:.1f} TFLOP/s, on {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

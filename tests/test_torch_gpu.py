@@ -1,6 +1,10 @@
-"""The port's CUDA kernels on a card: each against its plain PyTorch twin
-at the decode path's shapes (exact), and the decode against the JAX
-package's golden file.
+"""The port's CUDA kernels on a card: each decode kernel against its plain
+PyTorch twin at the decode path's shapes (exact), the decode against the
+JAX package's golden file, and the VGG-prefix conv kernels against their
+twins (float32 within 1e-4 of max|twin| with TF32 off: the sums run in
+another order; bf16 within 0.02 of max|twin|: one sum-order difference
+can move a value across a bf16 rounding boundary, and the next layer
+carries it on).
 
 Marked ``gpu``; they skip without a card (the decision is made in a
 fixture, so every xdist worker collects the same tests). The file
@@ -11,6 +15,7 @@ imports no JAX, so it runs on a machine without it. From the repo root:
 (``--noconftest``: ``tests/conftest.py`` configures JAX.)
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -18,9 +23,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_ekpose_tpu.config import Config  # noqa: E402
+from torch_ekpose_tpu_torch.config import Config  # noqa: E402
 import torch_port_inputs as inputs  # noqa: E402
 from torch_ekpose_tpu_torch.decode import device as PD  # noqa: E402
+from torch_ekpose_tpu_torch.models.vgg import (  # noqa: E402
+    PREFIX_END, VGG19Backbone, chain_params)
+from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc  # noqa: E402
 from torch_ekpose_tpu_torch.ops import match, merge, nms  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -98,3 +106,112 @@ def test_decode_on_card_matches_golden(cuda):
         packed, golden["packed"], 32, 96, rtol=1e-5) == []
     people = [len(PD.packed_to_humans(row, 368, 432, cfg)) for row in packed]
     assert people == golden["n_humans"].tolist() and min(people) >= 1
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def _conv_vs_twin(kernel, twin, x, *args, **kwargs):
+    """Launch once (the count rises by one), compare with the twin within
+    1e-4 (float32) or 0.02 (bf16) of max|twin|; return the relative error."""
+    before = kernel.launches
+    got = kernel(x, *args, **kwargs)
+    with _no_tf32():
+        want = twin(x, *args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype == x.dtype
+    assert torch.isfinite(got).all()
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item() / scale
+    assert err <= (1e-4 if x.dtype == torch.float32 else 0.02), err
+    return err
+
+
+def _chain_params(rng, chain, dev, bias=None):
+    return [(torch.from_numpy(rng.standard_normal((3, 3, ci, co)) * 0.2)
+             .float().to(dev),
+             torch.from_numpy(rng.standard_normal(co) * 0.1).float().to(dev)
+             if bias is None else torch.full((co,), bias, device=dev))
+            for ci, co in chain]
+
+
+# the JAX package's tests/test_pallas_conv.py shapes, and a bias-50 border
+CHAINS = [
+    (36, 24, [(3, 16), (16, 16)], True, None),
+    (20, 16, [(8, 8)], False, None),
+    (34, 20, [(4, 8), (8, 8)], False, None),
+    (32, 24, [(16, 24), (24, 32)], True, None),
+    (16, 16, [(8, 8), (8, 8), (8, 8)], False, None),
+    (16, 16, [(4, 8), (8, 8)], False, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,chain,pool,bias", CHAINS)
+def test_conv_chain_kernel_matches_twin(cuda, dtype, h, w, chain, pool, bias):
+    rng = np.random.default_rng(h * w)
+    x = torch.from_numpy(rng.standard_normal((2, h, w, chain[0][0]))).to(
+        cuda, dtype)
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x,
+                  _chain_params(rng, chain, cuda, bias), pool=pool)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 24), (1, 38, 70)])
+def test_block1_kernels_match_twins(cuda, dtype, shape):
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy(rng.standard_normal(shape + (3,))).to(cuda, dtype)
+    (w1, b1), (w2, b2) = _chain_params(rng, [(3, 64), (64, 64)], cuda)
+    _conv_vs_twin(block1.conv1_fused, block1.conv1_fused_torch, x, w1, b1)
+    _conv_vs_twin(block1.block1_fused, block1.block1_fused_torch, x, w1, b1,
+                  w2, b2)
+
+
+@pytest.mark.parametrize("block", [1, 2, 3])
+def test_conv_chain_at_vgg_prefix_shapes(cuda, block):
+    """bf16, batch 1, the prefix's full 368x432 widths, seeded weights."""
+    torch.manual_seed(block)
+    model = VGG19Backbone(device=cuda)
+    h, w, c = {1: (368, 432, 3), 2: (184, 216, 64), 3: (92, 108, 128)}[block]
+    x = torch.rand((1, h, w, c), device=cuda).to(torch.bfloat16)
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x,
+                  chain_params(model, block), pool=True)
+
+
+def test_prefix_kernels_match_cudnn_backbone(cuda):
+    """The three block-1 routes of prefix_forward in float32 against
+    backbone[:19] on cuDNN with TF32 off."""
+    from torch_ekpose_tpu_torch.models.vgg import prefix_forward
+
+    torch.manual_seed(0)
+    model = VGG19Backbone(device=cuda)
+    x = torch.rand((2, 48, 64, 3), device=cuda)
+    with _no_tf32(), torch.no_grad():
+        want = model.backbone[:PREFIX_END](x.permute(0, 3, 1, 2))
+    want = want.permute(0, 2, 3, 1)
+    for route in ("conv_chain", "block1_fused", "conv1_fused"):
+        got = prefix_forward(model, x, route)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        assert got.shape == (2, 6, 8, 256) and err <= 1e-4, (route, err)
+
+
+def test_conv_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.float16)
+    (w1, b1), = _chain_params(np.random.default_rng(0), [(3, 64)], cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cc.conv_chain(x, [(w1, b1)])
+    with pytest.raises(ValueError, match="layer 1"):
+        cc.conv_chain(x.float(), [(w1[:, :, :2], b1)])
+    with pytest.raises(ValueError, match="1 to 8 layers"):
+        cc.conv_chain(x.float(), [])
+    with pytest.raises(ValueError, match="another device"):
+        block1.conv1_fused(x.float(), w1.cpu(), b1.cpu())

@@ -135,7 +135,8 @@ def test_server_concurrent_submits(server):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax and flax absent."""
+    """Every module of the port imports with jax, flax and the JAX
+    package (``torch_ekpose_tpu``, ``torch_ekpose_tpu.*``) absent."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torch_ekpose_tpu_torch as pkg\n"
@@ -144,7 +145,7 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax'))\n"
+        "('jax', 'jaxlib', 'flax', 'torch_ekpose_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -157,10 +158,12 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py",
-                                  "tests/torch_port_inputs.py"])
+                                  "tests/torch_port_inputs.py",
+                                  "tests/test_torch_gpu.py",
+                                  "scripts/profile_torch_conv.py"])
 def test_card_checks_name_only_the_port(path):
-    """The card-side script and the inputs it loads import neither JAX
-    nor the JAX package: the card has no JAX."""
+    """The card-side scripts, tests and the inputs they load import
+    neither JAX nor the JAX package: the card has no JAX."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         os.pardir)
     with open(os.path.join(root, path)) as f:

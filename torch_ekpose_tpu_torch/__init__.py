@@ -7,9 +7,13 @@ so each module's counterpart is easy to find, imports ``torch`` and never
 decode takes ``[B, H, W, 19]`` heatmaps and ``[B, H, W, 38]`` PAFs, the
 estimator takes ``[B, H, W, 3]`` uint8 frames. The TPU's Pallas decode
 kernels are hand-written CUDA kernels here (``csrc/``, built with nvcc at
-first use by ``ops/_build.py``); the convolutions go to cuDNN.
+first use by ``ops/_build.py``); the serving forward's convolutions go to
+cuDNN, and the VGG prefix's fused conv kernels are in ``ops/conv_chain.py``
+and ``ops/block1.py``. The port keeps its own copies of the JAX package's
+``constants``, ``config`` and ``utils/human``.
 
 Importing the package loads no CUDA and builds nothing.
 """
 
-__all__ = ["cli", "decode", "models", "ops", "runtime"]
+__all__ = ["cli", "config", "constants", "decode", "models", "ops",
+           "runtime", "utils"]

@@ -35,13 +35,13 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from torch_ekpose_tpu import constants
-from torch_ekpose_tpu.config import Config, cfg as default_cfg
-from torch_ekpose_tpu.utils.human import BodyPart, Human
+from torch_ekpose_tpu_torch import constants
+from torch_ekpose_tpu_torch.config import Config, cfg as default_cfg
 from torch_ekpose_tpu_torch.ops.match import greedy_match
 from torch_ekpose_tpu_torch.ops.merge import merge_people
 from torch_ekpose_tpu_torch.ops.nms import masked_peak_scores
 from torch_ekpose_tpu_torch.ops.resize import resize_matrix
+from torch_ekpose_tpu_torch.utils.human import BodyPart, Human
 
 __all__ = [
     "DecodeResult", "LIMB_PAIRS", "build_packed_decoder", "cap_saturation",

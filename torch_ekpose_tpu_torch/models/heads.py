@@ -19,7 +19,7 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from torch_ekpose_tpu import constants
+from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.models.layers import conv_relu
 
 __all__ = ["CpmHead", "OpenPose", "VggBranch"]

@@ -6,6 +6,12 @@ lib/network/vgg2016.py:6-24): torchvision VGG19 ``features[:23]``
 two extra 3x3 convs 512 -> 256 -> 128 with ReLU. One ``nn.Sequential``
 named ``backbone``, so the convs sit at the reference's indices
 ``0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25``.
+
+:func:`prefix_forward` runs blocks 1-3 (``backbone[:19]``) through the
+fused conv kernels of ``ops/conv_chain.py`` and ``ops/block1.py``, the
+counterpart of the JAX package's ``scripts/profile_fused_conv.py`` and
+``scripts/profile_block1.py``. The serving forward stays on cuDNN, as the
+JAX backbone never calls those kernels.
 """
 
 from __future__ import annotations
@@ -13,8 +19,11 @@ from __future__ import annotations
 from torch import nn
 
 from torch_ekpose_tpu_torch.models.layers import conv_relu, max_pool
+from torch_ekpose_tpu_torch.ops.block1 import block1_fused, conv1_fused
+from torch_ekpose_tpu_torch.ops.conv_chain import conv_chain
 
-__all__ = ["VGG19Backbone", "VGG19_PLAN"]
+__all__ = ["BLOCK1_ROUTES", "PREFIX_BLOCKS", "PREFIX_END", "VGG19Backbone",
+           "VGG19_PLAN", "chain_params", "prefix_forward"]
 
 #: (convs_per_block, out_channels); a 2x2/2 max pool follows each of the
 #: first three blocks. This is exactly torchvision vgg19 features[:23].
@@ -45,3 +54,45 @@ class VGG19Backbone(nn.Module):
 
     def forward(self, x):
         return self.backbone(x)
+
+
+#: ``backbone`` indices of the convs of blocks 1, 2 and 3; a 2x2/2 pool
+#: ends each, and ``backbone[:PREFIX_END]`` is conv1_1 .. pool3
+PREFIX_BLOCKS = ((0, 2), (5, 7), (10, 12, 14, 16))
+PREFIX_END = 19
+#: how :func:`prefix_forward` runs block 1
+BLOCK1_ROUTES = ("conv_chain", "block1_fused", "conv1_fused")
+
+
+def chain_params(model: VGG19Backbone, block: int):
+    """Block ``block`` (1-3) of ``model`` as ``conv_chain`` params:
+    ``[(weight [3, 3, ci, co] HWIO, bias [co]), ...]``, views of the
+    module's OIHW weights (JAX weights reach them unchanged through
+    ``runtime/checkpoint.py::state_dict_from_jax``)."""
+    convs = [model.backbone[i] for i in PREFIX_BLOCKS[block - 1]]
+    return [(c.weight.detach().permute(2, 3, 1, 0), c.bias.detach())
+            for c in convs]
+
+
+def prefix_forward(model: VGG19Backbone, x, block1: str = "conv_chain"):
+    """VGG19 blocks 1-3 (``backbone[:19]``) through the fused conv kernels:
+    NHWC ``[B, H, W, 3]`` -> ``[B, H/8, W/8, 256]`` in ``x.dtype``.
+
+    ``block1`` picks block 1's kernel: ``conv_chain`` (both convs and the
+    pool), ``block1_fused`` (the same in one 27-deep-patch kernel), or
+    ``conv1_fused`` (conv1_1 alone, then ``conv_chain`` for conv1_2 and
+    the pool). Blocks 2 and 3 always go through ``conv_chain``.
+    """
+    first = chain_params(model, 1)
+    if block1 == "conv_chain":
+        y = conv_chain(x, first, pool=True)
+    elif block1 == "block1_fused":
+        y = block1_fused(x, *first[0], *first[1])
+    elif block1 == "conv1_fused":
+        y = conv_chain(conv1_fused(x, *first[0]), first[1:], pool=True)
+    else:
+        raise ValueError(f"block1 must be one of {BLOCK1_ROUTES}, "
+                         f"got {block1!r}")
+    for block in (2, 3):
+        y = conv_chain(y, chain_params(model, block), pool=True)
+    return y

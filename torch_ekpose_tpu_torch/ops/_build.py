@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-All ``csrc/*.cu`` sources compile in ONE nvcc call into one shared library
-with a plain C interface. No source includes PyTorch's headers, so the
-build takes seconds, not the minutes a ``torch.utils.cpp_extension``
-build takes. The library lands in ``build/torch_ekpose_tpu_torch/`` beside
-the package, named by a hash of the sources and flags, and is built at
-first use: the first CUDA launch of any kernel in a process pays the
+Each ``csrc/*.cu`` source compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into one shared library
+with a plain C interface (the conv kernels share ``conv_common.cuh``,
+which the library's hash covers too). No source includes PyTorch's
+headers, so the build takes seconds, not the minutes a
+``torch.utils.cpp_extension`` build takes, and its wall time is that of
+the slowest source. The library lands in ``build/torch_ekpose_tpu_torch/``
+beside the package, named by a hash of the sources and flags, and is built
+at first use: the first CUDA launch of any kernel in a process pays the
 build, and later processes of the same checkout reuse the file. nvcc's
 output (the ``-Xptxas -v`` register / shared-memory / spill report) is
 kept beside it as ``<library>.log``; :func:`build_report` reads it.
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -31,12 +35,13 @@ __all__ = ["build", "build_report", "check", "lib", "library_path",
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("nms.cu", "match.cu", "merge.cu")
+SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu", "block1.cu")
+HEADERS = ("conv_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_ekpose_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point -> argtypes; each returns a cudaError_t as int
@@ -50,6 +55,10 @@ SIGNATURES = {
     "ekp_merge_people": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
+    # x, out, w[] , bias[], ch[], n_layers, b, h, w, pool, is_bf16, stream
+    "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, w1, b1, w2, b2, c1, c2, b, h, w, conv1_only, is_bf16, stream
+    "ekp_block1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -72,10 +81,15 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libekpose_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc_failed(cmd, returncode: int, output: str) -> RuntimeError:
+    return RuntimeError(
+        f"nvcc failed (exit {returncode}): {' '.join(cmd)}\n{output}")
 
 
 def build() -> Path:
@@ -84,21 +98,33 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: concurrent processes of
+    nvcc = _nvcc()
+    # build in a private directory, then rename: concurrent processes of
     # one checkout never load a half-written library
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    # the log lands first: whoever sees the library finds its report
-    tmp.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp.with_suffix(".log"), path.with_suffix(".log"))
-    os.replace(tmp, path)
+    tmp = Path(tempfile.mkdtemp(prefix=f"{path.stem}.", dir=BUILD_DIR))
+    try:
+        objs = [str(tmp / f"{Path(name).stem}.o") for name in SOURCES]
+        cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+                for name, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise _nvcc_failed(cmd, proc.returncode, log)
+        lib_tmp = tmp / path.name
+        link = [nvcc, *LINK_FLAGS, "-o", str(lib_tmp), *objs]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise _nvcc_failed(link, proc.returncode, proc.stdout)
+        # the log lands first: whoever sees the library finds its report
+        (tmp / "build.log").write_text("".join(logs) + proc.stdout)
+        os.replace(tmp / "build.log", path.with_suffix(".log"))
+        os.replace(lib_tmp, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return path
 
 

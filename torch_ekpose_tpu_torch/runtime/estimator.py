@@ -20,12 +20,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from torch_ekpose_tpu import constants
-from torch_ekpose_tpu.config import Config, cfg as default_cfg
-from torch_ekpose_tpu.utils.human import Human
+from torch_ekpose_tpu_torch import constants
+from torch_ekpose_tpu_torch.config import Config, cfg as default_cfg
 from torch_ekpose_tpu_torch.decode import device as decode_device
 from torch_ekpose_tpu_torch.models.factory import get_model, init_model
 from torch_ekpose_tpu_torch.ops.resize import resize_image_np
+from torch_ekpose_tpu_torch.utils.human import Human
 
 __all__ = [
     "PoseEstimator", "nchw_to_nhwc", "nhwc_to_nchw", "padding",

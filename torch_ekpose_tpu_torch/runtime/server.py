@@ -31,9 +31,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from torch_ekpose_tpu import constants
-from torch_ekpose_tpu.utils.human import Human
+from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.runtime.estimator import padding
+from torch_ekpose_tpu_torch.utils.human import Human
 
 __all__ = ["PoseServer", "humans_to_json"]
 
