@@ -6,18 +6,24 @@ card.
 Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit; no card, no run;
-2. build the five kernels from ``torch_ekpose_tpu_torch/csrc`` with nvcc
-   for sm_90a and print ptxas's register / shared-memory report;
+2. build the six kernel sources from ``torch_ekpose_tpu_torch/csrc`` with
+   nvcc for sm_90a (one process each, all started together) and print
+   ptxas's register / shared-memory / spill report, which must cover
+   ``conv3x3_sm90.cu``'s kernel;
 3. hold each decode kernel against its plain PyTorch twin on the card,
    exactly, at the decode path's shapes, and time both (plain, kernel,
    kernel, plain);
-4. hold each VGG-prefix conv kernel (``conv_chain``, ``conv1_fused``,
-   ``block1_fused``) against its twin with TF32 off: float32 at the CPU
-   tests' small shapes within 1e-4 of max|twin|, bf16 at the prefix
-   path's shapes (batch 8, 368x432; blocks 1-3) within 0.02, each call
-   raising the launch count; time twin, kernel and cuDNN's bf16
-   ``channels_last`` chain in turns (helpers of
-   ``scripts/profile_torch_conv.py``, loaded by path);
+4. hold each VGG-prefix conv kernel (``conv_chain``'s fused kernel,
+   ``conv3x3_sm90``, ``conv1_fused``, ``block1_fused``) against its twin
+   with TF32 off: float32 at the CPU tests' small shapes within 1e-4 of
+   max|twin|, bf16 at ``SM90_CHAINS`` of ``tests/torch_port_inputs.py``
+   through ``conv_chain``'s sm90 route and at the prefix path's shapes
+   (batch 8, 368x432; blocks 1-3, each layer of blocks 2-3) within 0.02;
+   each call must raise each kernel's own launch count by what its route
+   launches (block 1 the fused kernel once, blocks 2-3 ``conv3x3_sm90``
+   once per layer); time twin, kernel and cuDNN's bf16 ``channels_last``
+   chain in turns (helpers of ``scripts/profile_torch_conv.py``, loaded
+   by path);
 5. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
    (written by the JAX package) on the card and compare the packed
    buffers: integer fields exact, float fields within rtol 1e-5, and
@@ -32,9 +38,10 @@ Phases (any failure raises and exits non-zero):
 7. the VGG prefix path: ``models.vgg.prefix_forward`` on the seeded
    model's weights and bf16 frames, once per block-1 route, with the conv
    kernels' counts set to 0 before and read after (each must have
-   launched); each route against ``backbone[:19]`` on cuDNN (bf16: within
-   0.05 of max|cuDNN|; float32, TF32 off: cosine > 0.999); then the
-   conv_chain route and cuDNN timed in turns;
+   launched; per route exactly its block-1 kernels and ``conv3x3_sm90``
+   6 times, blocks 2 and 3); each route against ``backbone[:19]`` on
+   cuDNN (bf16: within 0.05 of max|cuDNN|; float32, TF32 off: cosine >
+   0.999); then the conv_chain route and cuDNN timed in turns;
 8. ``PoseServer``: four threads ``submit()`` a frame each and
    ``GET /healthz`` answers.
 
@@ -143,13 +150,16 @@ def check_kernels(torch, prof, rng, inputs):
     return results
 
 
-def check_conv_kernels(torch, prof):
+def check_conv_kernels(torch, prof, inputs):
     """Phase 4: the VGG-prefix conv kernels against their twins (TF32
     off): float32 at the CPU tests' small shapes (within 1e-4 of
-    max|twin|), bf16 at the prefix path's shapes (within 0.02), each
-    launch raising its count by one; twin, kernel and cuDNN
-    (``library_ms``) timed in turns. Returns one record per kernel (its
-    times summed over the path's calls), the seeded model and frames."""
+    max|twin|), bf16 at ``inputs.SM90_CHAINS`` on the sm90 route and at
+    the prefix path's shapes (within 0.02), each call raising the
+    kernels' counts by exactly what its route launches; twin, kernel and
+    cuDNN (``library_ms``) timed in turns. Returns one record per kernel,
+    its times summed over the calls that launched it alone at the path's
+    shapes (``conv3x3_sm90``: each layer of blocks 2-3), the seeded model
+    and frames."""
     from torch_ekpose_tpu_torch.models.vgg import VGG19Backbone
     from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
 
@@ -167,80 +177,101 @@ def check_conv_kernels(torch, prof):
     chain = (cc.conv_chain, cc.conv_chain_torch)
     (w1, b1), (w2, b2) = params([(3, 64), (64, 64)])
     x1 = t(1, 16, 24, 3)
+    fused = {"conv_chain": 1}
     small = [
         ("conv_chain", "36x24 3-16-16 pool", *chain,
-         (t(2, 36, 24, 3), params([(3, 16), (16, 16)])), {"pool": True}),
+         (t(2, 36, 24, 3), params([(3, 16), (16, 16)])), {"pool": True},
+         fused),
         ("conv_chain", "16x16 bias-50 border", *chain,
-         (t(2, 16, 16, 4), params([(4, 8), (8, 8)], 50.0)), {"pool": False}),
+         (t(2, 16, 16, 4), params([(4, 8), (8, 8)], 50.0)), {"pool": False},
+         fused),
         ("conv_chain", "16x16 three deep", *chain,
-         (t(2, 16, 16, 8), params([(8, 8)] * 3)), {"pool": False}),
+         (t(2, 16, 16, 8), params([(8, 8)] * 3)), {"pool": False}, fused),
         ("conv1_fused", "16x24", block1.conv1_fused,
-         block1.conv1_fused_torch, (x1, w1, b1), {}),
+         block1.conv1_fused_torch, (x1, w1, b1), {}, {"conv1_fused": 1}),
         ("block1_fused", "16x24", block1.block1_fused,
-         block1.block1_fused_torch, (x1, w1, b1, w2, b2), {}),
+         block1.block1_fused_torch, (x1, w1, b1, w2, b2), {},
+         {"block1_fused": 1}),
     ]
-    f32_err = {}
+    for label, (shape, layers, pool, bias) in inputs.SM90_CHAINS.items():
+        x, ps = inputs.chain_arrays(rng, shape, layers, bias)
+        small.append((
+            "conv3x3_sm90", f"{label} via conv_chain", *chain,
+            (torch.from_numpy(x).cuda().to(torch.bfloat16),
+             [(torch.from_numpy(w).cuda(), torch.from_numpy(b).cuda())
+              for w, b in ps]), {"pool": pool},
+            {"conv3x3_sm90": len(layers)}))
+    small_err = {}
     with torch.no_grad():
-        for name, label, kernel, twin, args, kwargs in small:
+        for name, label, kernel, twin, args, kwargs, launches in small:
+            dtype = args[0].dtype
             _, _, rel = prof.check_case(dict(
                 name=name, label=label, kernel=kernel, twin=twin, args=args,
-                kwargs=kwargs), 1e-4)
-            f32_err[name] = max(f32_err.get(name, 0.0), rel)
-            print(f"kernel {name} float32 {label}: rel err {rel:.3e}")
+                kwargs=kwargs, launches=launches),
+                1e-4 if dtype == torch.float32 else 0.02)
+            small_err[name] = max(small_err.get(name, 0.0), rel)
+            print(f"kernel {name} {str(dtype)[6:]} {label}: launched "
+                  f"{launches}, rel err {rel:.3e}")
 
         torch.manual_seed(SEED)
         model = VGG19Backbone(device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         frames = torch.randn((BATCH, HEIGHT, WIDTH, 3), generator=gen,
                              device="cuda").to(torch.bfloat16)
-        cases = prof.prefix_cases(model, frames)
         calls = []
-        for case in cases:
+        for case in (prof.prefix_cases(model, frames)
+                     + prof.sm90_layer_cases(model, frames)):
             calls.append(prof.measure_case(case, reps=5))
             prof.print_case(calls[-1])
 
     replaces = {"conv_chain": "torch_ekpose_tpu/ops/pallas_conv.py:163",
+                "conv3x3_sm90": "torch_ekpose_tpu/ops/pallas_conv.py:163",
                 "conv1_fused": "scripts/profile_block1.py:68",
                 "block1_fused": "scripts/profile_block1.py:149"}
-    source = {"conv_chain": "csrc/conv_chain.cu",
-              "conv1_fused": "csrc/block1.cu", "block1_fused": "csrc/block1.cu"}
+    keys = ("shape", "launched", "source", "input", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_rel_err", "tflops")
+    kernels = prof.counted()
     records = []
     for name in replaces:
-        mine = [c for c in calls if c["name"] == name]
+        # the calls of this kernel's own wrapper that launched it alone
+        # (conv_chain's blocks 2-3 launch conv3x3_sm90 and are printed)
+        mine = [c for c in calls
+                if c["name"] == name and set(c["launched"]) == {name}]
         slowest = max(mine, key=lambda c: c["bound_ms"])
+        wrapper, source = kernels[name]
         records.append({
             "name": name, "route": "cuda",
-            "source": f"torch_ekpose_tpu_torch/{source[name]}",
+            "source": f"torch_ekpose_tpu_torch/{source}",
             "replaces": replaces[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_rel_err"] for c in mine),
-            "f32_max_rel_err": f32_err[name],
+            "small_max_rel_err": small_err[name],
             **{k: sum(c[k] for c in mine) for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms")},
             "bound_by": slowest["bound_by"],
-            "calls": [{k: c[k] for k in (
-                "shape", "input", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "max_rel_err", "tflops")}
-                for c in mine],
-            "wrapper": next(c for c in cases if c["name"] == name)["kernel"],
+            "calls": [{k: c[k] for k in keys} for c in mine],
+            "wrapper": wrapper,
         })
     return records, model, frames
 
 
 def check_prefix_path(torch, prof, kernels, model, frames):
     """Phase 7: the VGG prefix (blocks 1-3 on the model's own weights)
-    through the fused kernels, once per block-1 route, with every conv
+    through the conv kernels, once per block-1 route, with every conv
     kernel's launch count set to 0 just before and read just after; each
-    route against ``backbone[:19]`` on cuDNN; then timed."""
+    route must launch exactly ``prof.PREFIX_LAUNCHES`` (``conv3x3_sm90``
+    6 times: blocks 2 and 3; the fused ``conv_chain`` kernel once where
+    it runs block 1 or conv1_2) and each route is held against
+    ``backbone[:19]`` on cuDNN; then timed."""
     for rec in kernels:
         rec["wrapper"].launches = 0
     with torch.no_grad():
-        outs = prof.drive_prefix(model, frames)
+        outs, per_route = prof.drive_prefix(model, frames)
     torch.cuda.synchronize()
     launches = {rec["name"]: rec["wrapper"].launches for rec in kernels}
     print(f"prefix path: routes {sorted(outs)}, output "
           f"{tuple(next(iter(outs.values())).shape)}, kernel launches "
-          f"{launches}")
+          f"{launches}, per route {per_route}")
     if min(launches.values()) < 1:
         raise AssertionError("the prefix path did not run every conv kernel")
     for rec in kernels:
@@ -428,14 +459,17 @@ def main() -> int:
     path = _build.build()
     print(f"kernels built: {os.path.relpath(path, ROOT)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_report().splitlines():
-        if "ptxas" in line:
+    report = _build.build_report()
+    for line in report.splitlines():
+        if "ptxas" in line or "spill" in line:
             print(line)
+    if "conv3x3_kernel" not in report:
+        raise AssertionError("no ptxas report for conv3x3_sm90.cu")
     _build.lib()
 
     rng = np.random.default_rng(SEED)
     kernels = check_kernels(torch, prof, rng, inputs)
-    convs, model, conv_frames = check_conv_kernels(torch, prof)
+    convs, model, conv_frames = check_conv_kernels(torch, prof, inputs)
     golden = check_golden(torch, inputs)
     est, frames = check_main_path(torch, prof, rng, kernels)
     time_decodes(torch, prof, est, frames, golden)

@@ -1,4 +1,4 @@
-"""Time the VGG prefix's fused conv kernels on one CUDA card.
+"""Time the VGG prefix's conv kernels on one CUDA card.
 
     python scripts/profile_torch_conv.py [--batch 8] [--height 368] \
         [--width 432] [--reps 5] [--seed 0]
@@ -7,8 +7,11 @@ The port's counterpart of the JAX package's ``scripts/profile_fused_conv.py``
 and ``scripts/profile_block1.py``. With the seeded weights of the port's
 ``VGG19Backbone`` and seeded bf16 frames it runs vgg2016's blocks 1, 2 and
 3 through ``conv_chain`` (each block's input is the twin's output of the
-block before), and block 1 through ``conv1_fused`` and ``block1_fused``.
-For each it prints the max error relative to max|twin| against the plain
+block before; block 1 must launch the fused kernel once, blocks 2 and 3
+``conv3x3_sm90`` once per layer, as the wrappers' counts show), block 1
+through ``conv1_fused`` and ``block1_fused``, and each layer of blocks 2
+and 3 through ``conv3x3_sm90`` alone (each layer's input the twin's
+output of the layer before). For each it prints the max error relative to max|twin| against the plain
 twin (float32 sums, TF32 off), the kernel's, the twin's and cuDNN's time
 (the same convs + bias + ReLU + pool in bf16 ``channels_last``, the
 library yardstick), the kernel's TFLOP/s and share of the 989 TFLOP/s
@@ -125,10 +128,41 @@ def cudnn_chain(params, pool: bool):
     return run
 
 
+def counted() -> dict:
+    """name -> (wrapper, kernel source) of each conv kernel; each wrapper
+    counts its own kernel's launches in ``.launches``."""
+    from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
+
+    return {"conv_chain": (cc.conv_chain, "csrc/conv_chain.cu"),
+            "conv3x3_sm90": (cc.conv3x3_sm90, "csrc/conv3x3_sm90.cu"),
+            "conv1_fused": (block1.conv1_fused, "csrc/block1.cu"),
+            "block1_fused": (block1.block1_fused, "csrc/block1.cu")}
+
+
+def launch_counts() -> dict:
+    return {name: f.launches for name, (f, _) in counted().items()}
+
+
+def launched_since(before: dict) -> dict:
+    """name -> launches since ``before`` (a :func:`launch_counts`), for
+    each kernel that launched."""
+    now = launch_counts()
+    return {n: now[n] - before[n] for n in now if now[n] != before[n]}
+
+
+
+def _sm90_layer_twin(x, w, b, pool=False):
+    from torch_ekpose_tpu_torch.ops.conv_chain import conv_chain_torch
+
+    return conv_chain_torch(x, [(w, b)], pool)
+
+
 def prefix_cases(model, x1):
     """The prefix path's kernel calls at the shapes it gives them: blocks
     1-3 through ``conv_chain`` (blocks 2 and 3 on the twin's output of the
-    block before), block 1 through ``conv1_fused`` and ``block1_fused``."""
+    block before), block 1 through ``conv1_fused`` and ``block1_fused``;
+    each with the launches it must make (block 1 one fused
+    ``ekp_conv_chain``, blocks 2 and 3 one ``conv3x3_sm90`` per layer)."""
     from torch_ekpose_tpu_torch.models.vgg import chain_params
     from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
 
@@ -136,37 +170,66 @@ def prefix_cases(model, x1):
     with no_tf32():
         x2 = cc.conv_chain_torch(x1, p[0], True)
         x3 = cc.conv_chain_torch(x2, p[1], True)
-    cases = [dict(name="conv_chain", label=f"block{i + 1}",
-                  kernel=cc.conv_chain, twin=cc.conv_chain_torch,
-                  args=(x, p[i]), kwargs={"pool": True}, params=p[i],
-                  pool=True)
-             for i, x in enumerate((x1, x2, x3))]
+    cases = []
+    for i, x in enumerate((x1, x2, x3)):
+        cases.append(dict(name="conv_chain", label=f"block{i + 1}",
+                          kernel=cc.conv_chain, twin=cc.conv_chain_torch,
+                          args=(x, p[i]), kwargs={"pool": True}, params=p[i],
+                          pool=True, launches={"conv_chain": 1} if i == 0
+                          else {"conv3x3_sm90": len(p[i])}))
     cases.append(dict(name="conv1_fused", label="conv1_1",
                       kernel=block1.conv1_fused, twin=block1.conv1_fused_torch,
                       args=(x1, *p[0][0]), kwargs={}, params=p[0][:1],
-                      pool=False))
+                      pool=False, launches={"conv1_fused": 1}))
     cases.append(dict(name="block1_fused", label="block1",
                       kernel=block1.block1_fused,
                       twin=block1.block1_fused_torch,
                       args=(x1, *p[0][0], *p[0][1]), kwargs={}, params=p[0],
-                      pool=True))
+                      pool=True, launches={"block1_fused": 1}))
+    return cases
+
+
+def sm90_layer_cases(model, x1):
+    """Each layer of blocks 2 and 3 through ``conv3x3_sm90`` alone (conv2_1
+    .. conv3_4, the pool with each block's last), on the twin's output of
+    the layer before."""
+    from torch_ekpose_tpu_torch.models.vgg import chain_params
+    from torch_ekpose_tpu_torch.ops import conv_chain as cc
+
+    with no_tf32():
+        x = cc.conv_chain_torch(x1, chain_params(model, 1), True)
+    cases = []
+    for blk in (2, 3):
+        params = chain_params(model, blk)
+        for j, (w, b) in enumerate(params):
+            pool = j == len(params) - 1
+            cases.append(dict(name="conv3x3_sm90", label=f"conv{blk}_{j + 1}",
+                              kernel=cc.conv3x3_sm90, twin=_sm90_layer_twin,
+                              args=(x, w, b), kwargs={"pool": pool},
+                              params=[(w, b)], pool=pool,
+                              launches={"conv3x3_sm90": 1}))
+            with no_tf32():
+                x = _sm90_layer_twin(x, w, b, pool)
     return cases
 
 
 def check_case(case, tol: float) -> tuple:
-    """One launch against the twin (TF32 off): the launch count rises by
-    one and the max error is within ``tol`` of max|twin|. Returns
-    (kernel output, max_abs_err, max_rel_err)."""
+    """One call against the twin (TF32 off): the conv kernels' counts rise
+    by exactly ``case["launches"]`` (name -> launches) and the max error
+    is within ``tol`` of max|twin|. Returns (kernel output, max_abs_err,
+    max_rel_err)."""
     import torch
 
     kernel, args, kwargs = case["kernel"], case["args"], case["kwargs"]
-    before = kernel.launches
+    before = launch_counts()
     got = kernel(*args, **kwargs)
     with no_tf32():
         want = case["twin"](*args, **kwargs)
     torch.cuda.synchronize()
-    if kernel.launches != before + 1:
-        raise AssertionError(f"{case['name']}: launch count did not rise")
+    launched = launched_since(before)
+    if launched != case["launches"]:
+        raise AssertionError(f"{case['name']} {case['label']}: launched "
+                             f"{launched}, not {case['launches']}")
     if got.shape != want.shape or got.dtype != want.dtype or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"{case['name']}: {got.dtype} {tuple(got.shape)}"
@@ -181,7 +244,8 @@ def check_case(case, tol: float) -> tuple:
 
 def measure_case(case, reps: int) -> dict:
     """Check one case (bf16: within 0.02 of max|twin|) and time the twin,
-    the kernel and cuDNN in turns."""
+    the kernel and cuDNN in turns. ``launched`` and ``source`` are the
+    kernels the checked call launched, as their counts showed."""
     kernel, twin, args, kwargs = (case["kernel"], case["twin"], case["args"],
                                   case["kwargs"])
     out, err, rel = check_case(case, 0.02)
@@ -193,7 +257,10 @@ def measure_case(case, reps: int) -> dict:
              lambda: lib(x)], reps)
     flops, nbytes = chain_work(x, case["params"], out)
     bound, bound_by = bound_ms(flops, nbytes, x.dtype)
+    sources = counted()
     return {"name": case["name"], "shape": case["label"],
+            "launched": case["launches"],
+            "source": " ".join(sources[n][1] for n in case["launches"]),
             "input": list(x.shape), "max_abs_err": err, "max_rel_err": rel,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9,
@@ -202,7 +269,8 @@ def measure_case(case, reps: int) -> dict:
 
 
 def print_case(r: dict) -> None:
-    print(f"{r['name']} {r['shape']} {r['input']}: rel err "
+    print(f"{r['name']} {r['shape']} (launched {r['launched']}) "
+          f"{r['input']}: rel err "
           f"{r['max_rel_err']:.3e} (abs {r['max_abs_err']:.3e}); kernel "
           f"{r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, cuDNN "
           f"{r['library_ms']:.4f} ms; {r['gflop']:.1f} GFLOP, "
@@ -211,11 +279,30 @@ def print_case(r: dict) -> None:
           flush=True)
 
 
-def drive_prefix(model, x) -> dict:
-    """The prefix path once per block-1 route: route -> NHWC output."""
+#: each conv kernel's launches in one pass of the prefix path, per block-1
+#: route: block 1's kernels, then blocks 2 and 3 as six ``conv3x3_sm90``
+PREFIX_LAUNCHES = {
+    "conv_chain": {"conv_chain": 1, "conv3x3_sm90": 6},
+    "block1_fused": {"block1_fused": 1, "conv3x3_sm90": 6},
+    "conv1_fused": {"conv1_fused": 1, "conv_chain": 1, "conv3x3_sm90": 6},
+}
+
+
+def drive_prefix(model, x) -> tuple:
+    """The prefix path once per block-1 route: (route -> NHWC output,
+    route -> the conv kernels' launches during that route, which must be
+    :data:`PREFIX_LAUNCHES`)."""
     from torch_ekpose_tpu_torch.models.vgg import BLOCK1_ROUTES, prefix_forward
 
-    return {route: prefix_forward(model, x, route) for route in BLOCK1_ROUTES}
+    outs, launched = {}, {}
+    for route in BLOCK1_ROUTES:
+        before = launch_counts()
+        outs[route] = prefix_forward(model, x, route)
+        launched[route] = launched_since(before)
+    if launched != PREFIX_LAUNCHES:
+        raise AssertionError(f"prefix path launched {launched}, not "
+                             f"{PREFIX_LAUNCHES}")
+    return outs, launched
 
 
 def cudnn_prefix(model):
@@ -303,7 +390,9 @@ def main(argv=None) -> int:
                    for case in prefix_cases(model, x)]
         for r in results:
             print_case(r)
-        report = check_prefix(model, x, drive_prefix(model, x))
+        for case in sm90_layer_cases(model, x):
+            print_case(measure_case(case, args.reps))
+        report = check_prefix(model, x, drive_prefix(model, x)[0])
         print(f"prefix path vs backbone[:19]: {report}")
         ms, cudnn_ms = time_prefix(model, x, args.reps)
     gflop = sum(r["gflop"] for r in results if r["name"] == "conv_chain")

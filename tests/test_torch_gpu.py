@@ -4,13 +4,14 @@ JAX package's golden file, and the VGG-prefix conv kernels against their
 twins (float32 within 1e-4 of max|twin| with TF32 off: the sums run in
 another order; bf16 within 0.02 of max|twin|: one sum-order difference
 can move a value across a bf16 rounding boundary, and the next layer
-carries it on).
+carries it on), on both of ``conv_chain``'s routes (``-k sm90`` picks the
+TMA + wgmma one).
 
 Marked ``gpu``; they skip without a card (the decision is made in a
 fixture, so every xdist worker collects the same tests). The file
 imports no JAX, so it runs on a machine without it. From the repo root:
 
-    python -m pytest -m gpu --noconftest tests/test_torch_*.py
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.)
 """
@@ -118,15 +119,18 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = old
 
 
-def _conv_vs_twin(kernel, twin, x, *args, **kwargs):
-    """Launch once (the count rises by one), compare with the twin within
-    1e-4 (float32) or 0.02 (bf16) of max|twin|; return the relative error."""
-    before = kernel.launches
+def _conv_vs_twin(kernel, twin, x, *args, launches=None, **kwargs):
+    """Call once, compare with the twin within 1e-4 (float32) or 0.02
+    (bf16) of max|twin|; return the relative error. ``launches`` maps each
+    counted wrapper to the launches the call must add (``kernel``'s own
+    count rising by one when not given)."""
+    launches = launches or {kernel: 1}
+    before = {f: f.launches for f in launches}
     got = kernel(x, *args, **kwargs)
     with _no_tf32():
         want = twin(x, *args, **kwargs)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert {f: f.launches - before[f] for f in launches} == launches
     assert got.shape == want.shape and got.dtype == want.dtype == x.dtype
     assert torch.isfinite(got).all()
     scale = want.float().abs().max().item()
@@ -161,7 +165,42 @@ def test_conv_chain_kernel_matches_twin(cuda, dtype, h, w, chain, pool, bias):
     x = torch.from_numpy(rng.standard_normal((2, h, w, chain[0][0]))).to(
         cuda, dtype)
     _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x,
-                  _chain_params(rng, chain, cuda, bias), pool=pool)
+                  _chain_params(rng, chain, cuda, bias), pool=pool,
+                  launches=_routes(fused=1, sm90=0))
+
+
+def _routes(fused, sm90):
+    """``_conv_vs_twin``'s ``launches`` for a ``conv_chain`` call."""
+    return {cc.conv_chain: fused, cc.conv3x3_sm90: sm90}
+
+
+@pytest.mark.parametrize("name", list(inputs.SM90_CHAINS))
+def test_sm90_route_matches_twin(cuda, name):
+    shape, chain, pool, bias = inputs.SM90_CHAINS[name]
+    x, params = inputs.chain_arrays(np.random.default_rng(sum(shape)), shape,
+                                    chain, bias)
+    x = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    params = [(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda))
+              for w, b in params]
+    assert cc.plan_chain([shape[3]] + [co for _, co in chain],
+                         x.dtype) == "sm90"
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x, params, pool=pool,
+                  launches=_routes(fused=0, sm90=len(chain)))
+
+
+def test_sm90_kernel_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(1)
+    x = torch.zeros((1, 8, 16, 64), device=cuda, dtype=torch.bfloat16)
+    (w, b), (w_narrow, b_narrow) = _chain_params(rng, [(64, 128), (64, 64)],
+                                                 cuda)
+    before = cc.conv3x3_sm90.launches
+    with pytest.raises(ValueError, match="ci % 64 == 0 and co % 128"):
+        cc.conv3x3_sm90(x[..., :32].contiguous(), w[:, :, :32], b)
+    with pytest.raises(ValueError, match="ci % 64 == 0 and co % 128"):
+        cc.conv3x3_sm90(x, w_narrow, b_narrow)
+    with pytest.raises(ValueError, match="expected bfloat16"):
+        cc.conv3x3_sm90(x.float(), w, b)
+    assert cc.conv3x3_sm90.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -177,13 +216,16 @@ def test_block1_kernels_match_twins(cuda, dtype, shape):
 
 @pytest.mark.parametrize("block", [1, 2, 3])
 def test_conv_chain_at_vgg_prefix_shapes(cuda, block):
-    """bf16, batch 1, the prefix's full 368x432 widths, seeded weights."""
+    """bf16, batch 1, the prefix's full 368x432 widths, seeded weights:
+    block 1 on the fused kernel, blocks 2 and 3 one sm90 launch a layer."""
     torch.manual_seed(block)
     model = VGG19Backbone(device=cuda)
     h, w, c = {1: (368, 432, 3), 2: (184, 216, 64), 3: (92, 108, 128)}[block]
     x = torch.rand((1, h, w, c), device=cuda).to(torch.bfloat16)
-    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x,
-                  chain_params(model, block), pool=True)
+    params = chain_params(model, block)
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x, params, pool=True,
+                  launches=_routes(fused=1, sm90=0) if block == 1
+                  else _routes(fused=0, sm90=len(params)))
 
 
 def test_prefix_kernels_match_cudnn_backbone(cuda):

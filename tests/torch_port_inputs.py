@@ -5,8 +5,9 @@ Numpy only, so the same arrays can go to the JAX package's kernels, the
 port's twins and the CUDA kernels. The CPU parity tests, the GPU tests
 and ``chip_smoke.py`` (which loads this file by path) draw from here at
 the decode path's shapes (NMS ``[8, 19, 46, 54]``, match
-``[8, 19, 32, 32]``, merge B = 8, K = 32, cap = 96) or smaller. It
-imports only the port, so it runs on a machine without JAX.
+``[8, 19, 32, 32]``, merge B = 8, K = 32, cap = 96) or smaller, and at
+the small shapes of ``conv_chain``'s sm90 route. It imports only the
+port, so it runs on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -17,7 +18,19 @@ import numpy as np
 
 from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
-__all__ = ["match_scores", "merge_inputs", "nms_maps", "packed_mismatches"]
+__all__ = ["SM90_CHAINS", "chain_arrays", "match_scores", "merge_inputs",
+           "nms_maps", "packed_mismatches"]
+
+#: bf16 chains for ``conv_chain``'s sm90 route at small shapes, by id:
+#: (input ``[B, H, W, ci]``, ``[(ci, co), ...]``, pool, bias or None for
+#: seeded biases). Ragged sides, W not a multiple of 16, and a bias-50
+#: border (a relu(50) leaking past the image would show).
+SM90_CHAINS = {
+    "ragged_pool": ((2, 20, 28, 64), [(64, 128), (128, 128)], True, None),
+    "ci128": ((1, 12, 18, 128), [(128, 256)], False, None),
+    "bias50": ((1, 16, 24, 64), [(64, 128), (128, 128)], False, 50.0),
+    "w22": ((2, 10, 22, 64), [(64, 128)], True, None),
+}
 
 
 def nms_maps(rng: np.random.Generator, b: int, c: int, h: int,
@@ -81,6 +94,18 @@ def merge_inputs(rng: np.random.Generator, b: int, k: int,
         out["score"][bi] = score.reshape(-1)[order]
         out["n_valid"][bi] = valid.sum()
     return out
+
+
+def chain_arrays(rng: np.random.Generator, shape, chain, bias=None):
+    """float32 NHWC input of ``shape`` and ``[(w [3, 3, ci, co], b [co]),
+    ...]`` for ``chain``: normal draws, weights times 0.2, biases times 0.1
+    or all equal to ``bias``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    params = [((rng.standard_normal((3, 3, ci, co)) * 0.2).astype(np.float32),
+               (rng.standard_normal(co) * 0.1).astype(np.float32)
+               if bias is None else np.full(co, bias, np.float32))
+              for ci, co in chain]
+    return x, params
 
 
 def packed_mismatches(got: np.ndarray, want: np.ndarray, max_peaks: int,

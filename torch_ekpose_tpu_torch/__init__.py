@@ -8,7 +8,7 @@ decode takes ``[B, H, W, 19]`` heatmaps and ``[B, H, W, 38]`` PAFs, the
 estimator takes ``[B, H, W, 3]`` uint8 frames. The TPU's Pallas decode
 kernels are hand-written CUDA kernels here (``csrc/``, built with nvcc at
 first use by ``ops/_build.py``); the serving forward's convolutions go to
-cuDNN, and the VGG prefix's fused conv kernels are in ``ops/conv_chain.py``
+cuDNN, and the VGG prefix's conv kernels are in ``ops/conv_chain.py``
 and ``ops/block1.py``. The port keeps its own copies of the JAX package's
 ``constants``, ``config`` and ``utils/human``.
 

@@ -23,8 +23,10 @@
 // mma.sync (conv_common.cuh), with the weights read from L2 in fragment
 // order (all four block-3 layers are 4.1 MB in bf16, far below the 50 MB
 // L2), so no weight lives in shared memory. The halo recompute costs
-// about 2x the FLOPs in block 3 (8x8 tiles, 4 layers) and 1.2x in block 1;
-// wgmma, TMA and a pipelined weight stream are later work.
+// about 2x the FLOPs in block 3 (8x8 tiles, 4 layers) and 1.2x in block 1,
+// so ops/conv_chain.py sends bf16 chains of blocks 2-3's shapes to
+// conv3x3_sm90.cu (one TMA + wgmma launch per layer) instead; this kernel
+// keeps block 1, float32 and narrow chains.
 //
 // Plain C interface, bound with ctypes by ops/_build.py.
 

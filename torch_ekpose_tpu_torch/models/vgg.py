@@ -8,7 +8,7 @@ named ``backbone``, so the convs sit at the reference's indices
 ``0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25``.
 
 :func:`prefix_forward` runs blocks 1-3 (``backbone[:19]``) through the
-fused conv kernels of ``ops/conv_chain.py`` and ``ops/block1.py``, the
+conv kernels of ``ops/conv_chain.py`` and ``ops/block1.py``, the
 counterpart of the JAX package's ``scripts/profile_fused_conv.py`` and
 ``scripts/profile_block1.py``. The serving forward stays on cuDNN, as the
 JAX backbone never calls those kernels.
@@ -75,7 +75,7 @@ def chain_params(model: VGG19Backbone, block: int):
 
 
 def prefix_forward(model: VGG19Backbone, x, block1: str = "conv_chain"):
-    """VGG19 blocks 1-3 (``backbone[:19]``) through the fused conv kernels:
+    """VGG19 blocks 1-3 (``backbone[:19]``) through the conv kernels:
     NHWC ``[B, H, W, 3]`` -> ``[B, H/8, W/8, 256]`` in ``x.dtype``.
 
     ``block1`` picks block 1's kernel: ``conv_chain`` (both convs and the

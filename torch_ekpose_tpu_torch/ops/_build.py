@@ -35,7 +35,8 @@ __all__ = ["build", "build_report", "check", "lib", "library_path",
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu", "block1.cu")
+SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu", "block1.cu",
+           "conv3x3_sm90.cu")
 HEADERS = ("conv_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_ekpose_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -59,6 +60,8 @@ SIGNATURES = {
     "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, out, w1, b1, w2, b2, c1, c2, b, h, w, conv1_only, is_bf16, stream
     "ekp_block1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, w, bias, b, h, w, ci, co, pool, stream
+    "ekp_conv3x3_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,22 @@
-"""Fused chains of 3x3 convs for the VGG prefix (kernel ``csrc/conv_chain.cu``).
+"""Chains of 3x3 convs for the VGG prefix (kernels ``csrc/conv_chain.cu``
+and ``csrc/conv3x3_sm90.cu``).
 
 Counterpart of the JAX package's ``ops/pallas_conv.py``: N chained
-(3x3 SAME conv + bias + ReLU) layers, then an optional 2x2/2 max pool,
-in one pass. Each layer's result is rounded to the input's dtype, and a
-chained layer sees zeros beyond the image border, exactly as the unfused
-chain does.
+(3x3 SAME conv + bias + ReLU) layers, then an optional 2x2/2 max pool.
+Each layer's result is rounded to the input's dtype, and a chained layer
+sees zeros beyond the image border, exactly as the unfused chain does.
 
 The public layouts are the JAX package's: ``x`` NHWC, each weight
 ``[3, 3, ci, co]`` HWIO, each bias ``[co]``. The TPU kernel's ``row_tile``
-and ``interpret`` knobs are not carried over: the CUDA kernel picks its own
-2-D tile. :func:`pack_weight` puts a weight into the kernel's layout
-(``csrc/conv_common.cuh``); it runs on every call, a few small copies
-beside the kernel.
+and ``interpret`` knobs are not carried over. On a card, :func:`plan_chain`
+picks the kernel by shape: a bf16 chain whose every layer has
+``ci % 64 == 0`` and ``co % 128 == 0`` (vgg2016's blocks 2 and 3) runs as
+one :func:`conv3x3_sm90` launch per layer (TMA + wgmma, the pool in the
+last launch, each intermediate a bf16 NHWC tensor); every other chain
+(block 1, float32, narrow chains) runs fused in one ``ekp_conv_chain``
+launch, 2-D tiles with halo recompute. :func:`pack_weight` and
+:func:`pack_weight_kmajor` put a weight into each kernel's layout; they
+run on every call, a few small copies beside the kernel.
 """
 
 from __future__ import annotations
@@ -24,13 +29,16 @@ import torch.nn.functional as F
 
 from torch_ekpose_tpu_torch.ops import _build
 
-__all__ = ["conv_chain", "conv_chain_torch", "pack_weight", "pad_ch"]
+__all__ = ["conv3x3_sm90", "conv_chain", "conv_chain_torch", "pack_weight",
+           "pack_weight_kmajor", "pad_ch", "plan_chain"]
 
 Params = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 #: the most layers one ``ekp_conv_chain`` launch takes (``kMaxLayers``)
 MAX_LAYERS = 8
 _DTYPES = (torch.bfloat16, torch.float32)
+#: ``ekp_conv3x3_sm90``'s K chunk and N tile: ci and co must be multiples
+SM90_CI, SM90_CO = 64, 128
 
 
 def pad_ch(c: int) -> int:
@@ -78,6 +86,28 @@ def pad_bias(b: torch.Tensor, n_pad: int) -> torch.Tensor:
     return F.pad(b.float(), (0, n_pad - b.shape[0])).contiguous()
 
 
+def plan_chain(chans: Sequence[int], dtype: torch.dtype) -> str:
+    """The kernel a CUDA chain takes, from its channels (the input's, then
+    each layer's output) and dtype: ``"sm90"`` (one ``conv3x3_sm90``
+    launch per layer) when it is bf16 and every layer has ``ci % 64 == 0``
+    and ``co % 128 == 0``, else ``"fused"`` (one ``ekp_conv_chain``
+    launch)."""
+    layers = list(zip(chans, chans[1:]))
+    if dtype == torch.bfloat16 and layers and all(
+            ci % SM90_CI == 0 and co % SM90_CO == 0 for ci, co in layers):
+        return "sm90"
+    return "fused"
+
+
+def pack_weight_kmajor(w: torch.Tensor,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``[3, 3, ci, co]`` HWIO -> ``[co, 9 ci]``, row ``n`` holding
+    ``w[dy, dx, c, n]`` at ``k = (3 dy + dx) ci + c``: the K-major B operand
+    of ``ekp_conv3x3_sm90``."""
+    ci, co = w.shape[2], w.shape[3]
+    return w.to(dtype).reshape(9 * ci, co).t().contiguous()
+
+
 def check_input(name: str, x: torch.Tensor) -> None:
     """Raise unless ``x`` is a CUDA NHWC tensor the kernels take."""
     if x.device.type != "cuda":
@@ -87,33 +117,66 @@ def check_input(name: str, x: torch.Tensor) -> None:
                          f"{x.dtype} {tuple(x.shape)}")
 
 
-def conv_chain(x: torch.Tensor, params: Params,
-               pool: bool = False) -> torch.Tensor:
-    """``[B, H, W, C]`` -> the chain's output, ``[B, H, W, co]`` or
-    ``[B, H/2, W/2, co]`` when pooling, in ``x.dtype``.
+def _check_layer(name: str, x: torch.Tensor, ci: int, w: torch.Tensor,
+                 b: torch.Tensor, layer: int) -> int:
+    """Raise unless ``(w, b)`` is a 3x3 layer on ``ci`` channels on ``x``'s
+    device; return its ``co``."""
+    if (w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, ci)
+            or tuple(b.shape) != (w.shape[3],)):
+        raise ValueError(
+            f"{name}: layer {layer} takes [3, 3, {ci}, co] and [co], got "
+            f"{tuple(w.shape)} and {tuple(b.shape)}")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError(f"{name}: weights on another device")
+    return w.shape[3]
 
-    A CPU tensor takes the twin; a CUDA tensor launches ``ekp_conv_chain``
-    (bf16 or float32, float32 sums) or raises.
+
+def conv3x3_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 pool: bool = False) -> torch.Tensor:
+    """One 3x3 SAME conv + bias + ReLU (+ 2x2/2 max pool), bf16 NHWC
+    ``[B, H, W, ci]`` -> ``[B, H, W, co]`` or ``[B, H/2, W/2, co]``.
+
+    A CPU tensor takes the twin; a CUDA tensor launches
+    ``ekp_conv3x3_sm90`` (bf16, ``ci % 64 == 0``, ``co % 128 == 0``,
+    float32 sums) or raises.
     """
-    params = list(params)
     if pool and (x.shape[1] % 2 or x.shape[2] % 2):
-        raise ValueError("pooled conv_chain needs even H and W")
+        raise ValueError("pooled conv3x3_sm90 needs even H and W")
     if x.device.type == "cpu":
-        return conv_chain_torch(x, params, pool)
-    check_input("conv_chain", x)
-    if not 1 <= len(params) <= MAX_LAYERS:
-        raise ValueError(f"conv_chain: 1 to {MAX_LAYERS} layers, got "
-                         f"{len(params)}")
-    chans = [x.shape[3]]
-    for w, b in params:
-        if (w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, chans[-1])
-                or tuple(b.shape) != (w.shape[3],)):
-            raise ValueError(
-                f"conv_chain: layer {len(chans)} takes [3, 3, {chans[-1]}, co]"
-                f" and [co], got {tuple(w.shape)} and {tuple(b.shape)}")
-        if w.device != x.device or b.device != x.device:
-            raise ValueError("conv_chain: weights on another device")
-        chans.append(w.shape[3])
+        return conv_chain_torch(x, [(w, b)], pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_sm90: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16 or x.dim() != 4:
+        raise ValueError(f"conv3x3_sm90: expected bfloat16 NHWC, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    bsz, h, w_, ci = x.shape
+    co = _check_layer("conv3x3_sm90", x, ci, w, b, 1)
+    if ci % SM90_CI or co % SM90_CO:
+        raise ValueError(f"conv3x3_sm90: needs ci % {SM90_CI} == 0 and "
+                         f"co % {SM90_CO} == 0, got {ci} -> {co}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("conv3x3_sm90: input not 16-byte aligned")
+    wk = pack_weight_kmajor(w)
+    bias = b.float().contiguous()
+    shape = (bsz, h // 2, w_ // 2, co) if pool else (bsz, h, w_, co)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.lib().ekp_conv3x3_sm90(
+            _build.ptr(x), _build.ptr(out), _build.ptr(wk), _build.ptr(bias),
+            bsz, h, w_, ci, co, int(pool), _build.stream_of(x))
+    _build.check(err, "ekp_conv3x3_sm90")
+    conv3x3_sm90.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel since the count was last set to 0
+conv3x3_sm90.launches = 0
+
+
+def _conv_chain_fused(x: torch.Tensor, params: Params, chans: Sequence[int],
+                      pool: bool) -> torch.Tensor:
+    """The whole chain in one ``ekp_conv_chain`` launch."""
     x = x.contiguous()
     ws = [pack_weight(w.reshape(9, ci, co), pad_ch(ci), pad_ch(co), x.dtype)
           for (w, _), ci, co in zip(params, chans, chans[1:])]
@@ -136,5 +199,36 @@ def conv_chain(x: torch.Tensor, params: Params,
     return out
 
 
-#: launches of the CUDA kernel since the count was last set to 0
+def conv_chain(x: torch.Tensor, params: Params,
+               pool: bool = False) -> torch.Tensor:
+    """``[B, H, W, C]`` -> the chain's output, ``[B, H, W, co]`` or
+    ``[B, H/2, W/2, co]`` when pooling, in ``x.dtype``.
+
+    A CPU tensor takes the twin; a CUDA tensor runs the kernel
+    :func:`plan_chain` picks (bf16 or float32, float32 sums) or raises.
+    ``conv_chain.launches`` counts ``ekp_conv_chain`` launches only; the
+    sm90 route's launches are counted by ``conv3x3_sm90.launches``.
+    """
+    params = list(params)
+    if pool and (x.shape[1] % 2 or x.shape[2] % 2):
+        raise ValueError("pooled conv_chain needs even H and W")
+    if x.device.type == "cpu":
+        return conv_chain_torch(x, params, pool)
+    check_input("conv_chain", x)
+    if not 1 <= len(params) <= MAX_LAYERS:
+        raise ValueError(f"conv_chain: 1 to {MAX_LAYERS} layers, got "
+                         f"{len(params)}")
+    chans = [x.shape[3]]
+    for w, b in params:
+        chans.append(_check_layer("conv_chain", x, chans[-1], w, b,
+                                  len(chans)))
+    if plan_chain(chans, x.dtype) == "fused":
+        return _conv_chain_fused(x, params, chans, pool)
+    last = len(params) - 1
+    for i, (w, b) in enumerate(params):
+        x = conv3x3_sm90(x, w, b, pool=pool and i == last)
+    return x
+
+
+#: launches of ``ekp_conv_chain`` since the count was last set to 0
 conv_chain.launches = 0
