@@ -9,21 +9,25 @@ Phases (any failure raises and exits non-zero):
 2. build the six kernel sources from ``torch_ekpose_tpu_torch/csrc`` with
    nvcc for sm_90a (one process each, all started together) and print
    ptxas's register / shared-memory / spill report, which must cover
-   ``conv3x3_sm90.cu``'s kernel;
+   ``conv3x3_sm90.cu``'s and ``block1_sm90.cu``'s kernels;
 3. hold each decode kernel against its plain PyTorch twin on the card,
    exactly, at the decode path's shapes, and time both (plain, kernel,
    kernel, plain);
 4. hold each VGG-prefix conv kernel (``conv_chain``'s fused kernel,
    ``conv3x3_sm90``, ``conv1_fused``, ``block1_fused``) against its twin
    with TF32 off: float32 at the CPU tests' small shapes within 1e-4 of
-   max|twin|, bf16 at ``SM90_CHAINS`` of ``tests/torch_port_inputs.py``
-   through ``conv_chain``'s sm90 route and at the prefix path's shapes
-   (batch 8, 368x432; blocks 1-3, each layer of blocks 2-3) within 0.02;
+   max|twin| (``conv1_fused`` and ``block1_fused`` take ``conv_chain``'s
+   fused kernel there), bf16 at ``SM90_CHAINS`` of
+   ``tests/torch_port_inputs.py`` through ``conv_chain``'s sm90 route, at
+   small ragged and bias-50 shapes through ``block1_sm90`` and at the
+   prefix path's shapes (batch 8, 368x432; blocks 1-3, each layer of
+   blocks 2-3, conv1_1 and block 1 through ``block1_sm90``) within 0.02;
    each call must raise each kernel's own launch count by what its route
    launches (block 1 the fused kernel once, blocks 2-3 ``conv3x3_sm90``
    once per layer); time twin, kernel and cuDNN's bf16 ``channels_last``
    chain in turns (helpers of ``scripts/profile_torch_conv.py``, loaded
-   by path);
+   by path), and read ``block1_sm90``'s own device time in each mode from
+   one ``torch.profiler`` pass beside its wrapper's;
 5. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
    (written by the JAX package) on the card and compare the packed
    buffers: integer fields exact, float fields within rtol 1e-5, and
@@ -41,7 +45,7 @@ Phases (any failure raises and exits non-zero):
    launched; per route exactly its block-1 kernels and ``conv3x3_sm90``
    6 times, blocks 2 and 3); each route against ``backbone[:19]`` on
    cuDNN (bf16: within 0.05 of max|cuDNN|; float32, TF32 off: cosine >
-   0.999); then the conv_chain route and cuDNN timed in turns;
+   0.999); then the three routes and cuDNN timed in turns;
 8. ``PoseServer``: four threads ``submit()`` a frame each and
    ``GET /healthz`` answers.
 
@@ -175,8 +179,8 @@ def check_conv_kernels(torch, prof, inputs):
                      (co,), bias, device="cuda")) for ci, co in chain]
 
     chain = (cc.conv_chain, cc.conv_chain_torch)
-    (w1, b1), (w2, b2) = params([(3, 64), (64, 64)])
-    x1 = t(1, 16, 24, 3)
+    conv1 = (block1.conv1_fused, block1.conv1_fused_torch)
+    pooled = (block1.block1_fused, block1.block1_fused_torch)
     fused = {"conv_chain": 1}
     small = [
         ("conv_chain", "36x24 3-16-16 pool", *chain,
@@ -187,12 +191,22 @@ def check_conv_kernels(torch, prof, inputs):
          fused),
         ("conv_chain", "16x16 three deep", *chain,
          (t(2, 16, 16, 8), params([(8, 8)] * 3)), {"pool": False}, fused),
-        ("conv1_fused", "16x24", block1.conv1_fused,
-         block1.conv1_fused_torch, (x1, w1, b1), {}, {"conv1_fused": 1}),
-        ("block1_fused", "16x24", block1.block1_fused,
-         block1.block1_fused_torch, (x1, w1, b1, w2, b2), {},
-         {"block1_fused": 1}),
     ]
+    # block 1: float32 runs on conv_chain's fused kernel, bf16 on
+    # block1_sm90 (ragged tiles; a relu(50) leaking past the border)
+    for shape, bias in (((1, 16, 24), None), ((1, 38, 70), None),
+                        ((2, 38, 70), 50.0)):
+        (w1, b1), (w2, b2) = params([(3, 64), (64, 64)], bias)
+        x = t(*shape, 3)
+        label = "x".join(map(str, shape)) + ("" if bias is None else
+                                             " bias-50")
+        for xd in (x, x.to(torch.bfloat16)):
+            f32 = xd.dtype == torch.float32
+            small += [
+                ("conv1_fused", label, *conv1, (xd, w1, b1), {},
+                 fused if f32 else {"conv1_fused": 1}),
+                ("block1_fused", label, *pooled, (xd, w1, b1, w2, b2), {},
+                 fused if f32 else {"block1_fused": 1})]
     for label, (shape, layers, pool, bias) in inputs.SM90_CHAINS.items():
         x, ps = inputs.chain_arrays(rng, shape, layers, bias)
         small.append((
@@ -209,7 +223,8 @@ def check_conv_kernels(torch, prof, inputs):
                 name=name, label=label, kernel=kernel, twin=twin, args=args,
                 kwargs=kwargs, launches=launches),
                 1e-4 if dtype == torch.float32 else 0.02)
-            small_err[name] = max(small_err.get(name, 0.0), rel)
+            for k in launches:
+                small_err[k] = max(small_err.get(k, 0.0), rel)
             print(f"kernel {name} {str(dtype)[6:]} {label}: launched "
                   f"{launches}, rel err {rel:.3e}")
 
@@ -219,10 +234,19 @@ def check_conv_kernels(torch, prof, inputs):
         frames = torch.randn((BATCH, HEIGHT, WIDTH, 3), generator=gen,
                              device="cuda").to(torch.bfloat16)
         calls = []
+        device = {}
         for case in (prof.prefix_cases(model, frames)
                      + prof.sm90_layer_cases(model, frames)):
             calls.append(prof.measure_case(case, reps=5))
             prof.print_case(calls[-1])
+            if case["name"] in ("conv1_fused", "block1_fused"):
+                kernel, args = case["kernel"], case["args"]
+                device[case["name"]] = prof.device_ms(
+                    lambda: kernel(*args), "block1_kernel", reps=5)
+                print(f"{case['name']}: block1_sm90's own device time "
+                      f"{device[case['name']][0]:.4f} ms, all device work "
+                      f"of the wrapper {device[case['name']][1]:.4f} ms "
+                      f"(torch.profiler, mean of 5)")
 
     replaces = {"conv_chain": "torch_ekpose_tpu/ops/pallas_conv.py:163",
                 "conv3x3_sm90": "torch_ekpose_tpu/ops/pallas_conv.py:163",
@@ -249,6 +273,9 @@ def check_conv_kernels(torch, prof, inputs):
             **{k: sum(c[k] for c in mine) for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms")},
             "bound_by": slowest["bound_by"],
+            **({} if name not in device else {
+                "kernel_device_ms": device[name][0],
+                "wrapper_device_ms": device[name][1]}),
             "calls": [{k: c[k] for k in keys} for c in mine],
             "wrapper": wrapper,
         })
@@ -278,10 +305,10 @@ def check_prefix_path(torch, prof, kernels, model, frames):
         rec["launches"] = launches[rec["name"]]
     print(f"prefix path vs backbone[:19]: "
           f"{prof.check_prefix(model, frames, outs)}")
-    ms, cudnn_ms = prof.time_prefix(model, frames, reps=5)
-    print(f"prefix path (conv_chain route), batch {BATCH} at "
-          f"{HEIGHT}x{WIDTH} bf16: kernels {ms:.4f} ms, cuDNN backbone[:19] "
-          f"{cudnn_ms:.4f} ms (means of 5, in turns), on {prof.card_line()}")
+    route_ms, cudnn_ms = prof.time_prefix(model, frames, reps=5)
+    print(f"prefix path, batch {BATCH} at {HEIGHT}x{WIDTH} bf16, by block-1 "
+          f"route: {route_ms} ms; cuDNN backbone[:19] {cudnn_ms:.4f} ms "
+          f"(means of 5, in turns), on {prof.card_line()}")
 
 
 def check_golden(torch, inputs):
@@ -463,8 +490,10 @@ def main() -> int:
     for line in report.splitlines():
         if "ptxas" in line or "spill" in line:
             print(line)
-    if "conv3x3_kernel" not in report:
-        raise AssertionError("no ptxas report for conv3x3_sm90.cu")
+    for kernel, source in (("conv3x3_kernel", "conv3x3_sm90.cu"),
+                           ("block1_kernel", "block1_sm90.cu")):
+        if kernel not in report:
+            raise AssertionError(f"no ptxas report for {source}")
     _build.lib()
 
     rng = np.random.default_rng(SEED)

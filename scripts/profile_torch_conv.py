@@ -20,7 +20,7 @@ calls by CUDA events, in turns: twin, kernel, cuDNN, cuDNN, kernel, twin.
 
 Then the prefix path: ``prefix_forward`` with each block-1 route, against
 ``backbone[:19]`` on cuDNN in bf16 ``channels_last`` and in float32 with
-TF32 off, and the conv_chain route timed against cuDNN's.
+TF32 off, and each route timed in turns with cuDNN's.
 
 ``chip_smoke.py`` loads this file by path and uses its helpers. It runs
 only on a card.
@@ -135,8 +135,8 @@ def counted() -> dict:
 
     return {"conv_chain": (cc.conv_chain, "csrc/conv_chain.cu"),
             "conv3x3_sm90": (cc.conv3x3_sm90, "csrc/conv3x3_sm90.cu"),
-            "conv1_fused": (block1.conv1_fused, "csrc/block1.cu"),
-            "block1_fused": (block1.block1_fused, "csrc/block1.cu")}
+            "conv1_fused": (block1.conv1_fused, "csrc/block1_sm90.cu"),
+            "block1_fused": (block1.block1_fused, "csrc/block1_sm90.cu")}
 
 
 def launch_counts() -> dict:
@@ -348,17 +348,43 @@ def check_prefix(model, x, outs: dict) -> dict:
 
 
 def time_prefix(model, x, reps: int) -> tuple:
-    """(kernels ms, cuDNN ms): the conv_chain route of the prefix path
-    against cuDNN's bf16 ``channels_last`` ``backbone[:19]``, in turns."""
+    """(route -> kernels ms, cuDNN ms): each block-1 route of the prefix
+    path and cuDNN's bf16 ``channels_last`` ``backbone[:19]``, in turns."""
     import torch
 
-    from torch_ekpose_tpu_torch.models.vgg import prefix_forward
+    from torch_ekpose_tpu_torch.models.vgg import BLOCK1_ROUTES, prefix_forward
 
     ref = cudnn_prefix(model)
+    fns = [lambda r=r: prefix_forward(model, x, r) for r in BLOCK1_ROUTES]
     with torch.no_grad():
-        ms, cudnn_ms = turns([lambda: prefix_forward(model, x),
-                              lambda: ref(x)], reps)
-    return ms, cudnn_ms
+        *times, cudnn_ms = turns(fns + [lambda: ref(x)], reps)
+    return dict(zip(BLOCK1_ROUTES, times)), cudnn_ms
+
+
+def device_ms(fn, kernel: str, reps: int) -> tuple:
+    """(device ms of the kernels whose name holds ``kernel``, device ms of
+    every kernel) per call of ``fn``, from one ``torch.profiler`` pass over
+    ``reps`` calls after a warm-up: the wrapper's own work (weight
+    packing, allocation) is the difference."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += evt.device_time_total
+            if kernel in evt.key:
+                mine += evt.device_time_total
+    if mine <= 0:
+        raise AssertionError(f"the profiler saw no device time of {kernel}")
+    return mine / reps / 1e3, total / reps / 1e3
 
 
 def main(argv=None) -> int:
@@ -394,12 +420,10 @@ def main(argv=None) -> int:
             print_case(measure_case(case, args.reps))
         report = check_prefix(model, x, drive_prefix(model, x)[0])
         print(f"prefix path vs backbone[:19]: {report}")
-        ms, cudnn_ms = time_prefix(model, x, args.reps)
-    gflop = sum(r["gflop"] for r in results if r["name"] == "conv_chain")
-    print(f"prefix path (blocks 1-3, conv_chain route), batch {args.batch} "
-          f"at {args.height}x{args.width} bf16: kernels {ms:.4f} ms, cuDNN "
-          f"{cudnn_ms:.4f} ms; {gflop:.1f} GFLOP = {gflop / ms:.1f} vs "
-          f"{gflop / cudnn_ms:.1f} TFLOP/s, on {card}")
+        route_ms, cudnn_ms = time_prefix(model, x, args.reps)
+    print(f"prefix path (blocks 1-3), batch {args.batch} at {args.height}x"
+          f"{args.width} bf16, by block-1 route: {route_ms} ms; cuDNN "
+          f"{cudnn_ms:.4f} ms, on {card}")
     return 0
 
 

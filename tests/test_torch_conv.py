@@ -9,7 +9,9 @@ Tolerances:
 - bf16 against bf16: max error within 0.02 of max|reference|. Both sides
   sum in float32, but in another order, before each bf16 rounding, so a
   value can round the other way and the next layer carries it on.
-- ``conv1_fused`` / ``block1_fused`` in float32: atol 2e-5, as above.
+- ``conv1_fused`` / ``block1_fused`` in float32: atol 2e-5, as above
+  (atol 1e-4 / rtol 1e-5 in the bias-50 border case, as above); in bf16
+  within 0.02 of max|reference|, as above.
 - blocks 1-3 against ``backbone[:19]``: rtol 1e-4, atol 1e-4 *
   max|reference| (``tests/test_torch_models.py``'s forward tolerance).
 """
@@ -138,6 +140,46 @@ def test_block1_kernels_match_profile_block1(variant):
     want1 = prof.conv1_fused(jx, jw1, jb1, interpret=True)
     assert got1.shape == want1.shape == (1, 16, 24, 64)
     np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape,bias,rt", [((1, 38, 70), None, 2), ((2, 16, 24), 50.0, 8)],
+    ids=["ragged_38x70", "bias50_border"])
+def test_block1_kernels_match_profile_block1_cases(shape, bias, rt, dtype):
+    """The port's ``conv1_fused`` / ``block1_fused`` (the twins on the CPU)
+    against ``scripts/profile_block1.py``'s kernels in interpret mode, at
+    a side that is no multiple of the card kernel's tiles and with a
+    bias-50 border: float32 within atol 2e-5 (the border case, whose
+    values reach the hundreds, within ``test_conv_chain_matches_jax_kernel``'s
+    atol 1e-4 / rtol 1e-5), bf16 within 0.02 of max|reference|."""
+    prof = _profile_block1()
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape + (3,)).astype(np.float32)
+    (w1, b1), (w2, b2) = _params(rng, [(3, 64), (64, 64)], bias)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt)
+    tw1, tb1, tw2, tb2 = map(torch.from_numpy, (w1, b1, w2, b2))
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    jw1, jb1, jw2, jb2 = map(jnp.asarray, (w1, b1, w2, b2))
+    pairs = [
+        (block1.conv1_fused(tx, tw1, tb1),
+         prof.conv1_fused(jx, jw1, jb1, rt=rt, interpret=True)),
+        (block1.block1_fused(tx, tw1, tb1, tw2, tb2),
+         prof.block1_fused(jx, jw1, jb1, jw2, jb2, rt=rt, variant="A",
+                           interpret=True)),
+    ]
+    for got, want in pairs:
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        assert got.shape == want.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(
+                got, want, atol=2e-5 if bias is None else 1e-4,
+                rtol=0 if bias is None else 1e-5)
+        else:
+            assert np.abs(got - want).max() <= 0.02 * np.abs(want).max()
+    if bias is not None:       # relu(50) leaking past the border would show
+        assert want[:, 0, 0].max() < want[:, 4, 4].max()
 
 
 def test_prefix_matches_backbone_on_jax_weights(vgg_model_and_vars):

@@ -203,15 +203,93 @@ def test_sm90_kernel_refuses_what_it_does_not_take(cuda):
     assert cc.conv3x3_sm90.launches == before
 
 
+def _block1_counts(conv1=0, pooled=0, chain=0):
+    """``_conv_vs_twin``'s ``launches`` for a block-1 call: every counted
+    conv wrapper, with what it must add (``conv1_fused``,
+    ``block1_fused``, the fused ``conv_chain`` kernel)."""
+    return {block1.conv1_fused: conv1, block1.block1_fused: pooled,
+            cc.conv_chain: chain, cc.conv3x3_sm90: 0}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 16, 24), (1, 38, 70)])
 def test_block1_kernels_match_twins(cuda, dtype, shape):
+    """bf16 launches ``ekp_block1_sm90`` in each mode; float32 runs the
+    same function on ``conv_chain``'s fused kernel, the block-1 counts
+    unchanged."""
     rng = np.random.default_rng(shape[1])
     x = torch.from_numpy(rng.standard_normal(shape + (3,))).to(cuda, dtype)
     (w1, b1), (w2, b2) = _chain_params(rng, [(3, 64), (64, 64)], cuda)
-    _conv_vs_twin(block1.conv1_fused, block1.conv1_fused_torch, x, w1, b1)
+    sm90 = dtype == torch.bfloat16
+    _conv_vs_twin(block1.conv1_fused, block1.conv1_fused_torch, x, w1, b1,
+                  launches=_block1_counts(conv1=int(sm90),
+                                          chain=int(not sm90)))
     _conv_vs_twin(block1.block1_fused, block1.block1_fused_torch, x, w1, b1,
-                  w2, b2)
+                  w2, b2, launches=_block1_counts(pooled=int(sm90),
+                                                  chain=int(not sm90)))
+
+
+@pytest.mark.parametrize("shape,bias", [
+    ((2, 38, 70), 50.0),           # ragged tiles and a relu(50) border
+    ((1, 368, 432), None),         # the prefix's full width: 7 column tiles
+    ((3, 16, 124), None),          # W a multiple of the fused tile (62)
+])
+def test_block1_sm90_route_matches_twin(cuda, shape, bias):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape + (3,))).to(
+        cuda, torch.bfloat16)
+    (w1, b1), (w2, b2) = _chain_params(rng, [(3, 64), (64, 64)], cuda, bias)
+    assert block1.plan_block1(64, 64, x.dtype) == "sm90"
+    _conv_vs_twin(block1.conv1_fused, block1.conv1_fused_torch, x, w1, b1,
+                  launches=_block1_counts(conv1=1))
+    _conv_vs_twin(block1.block1_fused, block1.block1_fused_torch, x, w1, b1,
+                  w2, b2, launches=_block1_counts(pooled=1))
+
+
+def test_block1_narrow_bf16_takes_conv_chain(cuda):
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal((2, 20, 30, 3))).to(
+        cuda, torch.bfloat16)
+    (w1, b1), (w2, b2) = _chain_params(rng, [(3, 32), (32, 32)], cuda)
+    assert block1.plan_block1(32, 32, x.dtype) == "chain"
+    _conv_vs_twin(block1.conv1_fused, block1.conv1_fused_torch, x, w1, b1,
+                  launches=_block1_counts(chain=1))
+    _conv_vs_twin(block1.block1_fused, block1.block1_fused_torch, x, w1, b1,
+                  w2, b2, launches=_block1_counts(chain=1))
+
+
+def test_block1_refusals_launch_nothing(cuda):
+    rng = np.random.default_rng(2)
+    (w1, b1), (w2, b2) = _chain_params(rng, [(3, 64), (64, 64)], cuda)
+    x = torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.bfloat16)
+    counted = (block1.conv1_fused, block1.block1_fused, cc.conv_chain,
+               cc.conv3x3_sm90)
+    before = [f.launches for f in counted]
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        block1.block1_fused(x.half(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="expected x"):
+        block1.conv1_fused(torch.zeros((1, 8, 8, 4), device=cuda,
+                                       dtype=torch.bfloat16), w1, b1)
+    with pytest.raises(ValueError, match="another device"):
+        block1.block1_fused(x, w1, b1, w2.cpu(), b2)
+    with pytest.raises(ValueError, match="even H and W"):
+        block1.block1_fused(x[:, :7], w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counted] == before
+
+
+def test_block1_wgmma_descriptor(cuda):
+    """One wgmma.m64n256k16 through the kernel's no-swizzle descriptors
+    (A as w2 is laid out, B as the conv1_1 region with a group stride
+    other than 256 pixels) equals a @ b^T: pins the LBO / SBO meaning."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.standard_normal((64, 16))).to(
+        cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((256, 16))).to(
+        cuda, torch.bfloat16)
+    got = block1._wgmma_probe(a, b)
+    want = a.double() @ b.double().t()
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("block", [1, 2, 3])

@@ -1,4 +1,4 @@
-// Shared pieces of the fused 3x3 conv kernels (conv_chain.cu, block1.cu).
+// Pieces of the fused 3x3 conv chain kernel (conv_chain.cu).
 //
 // A fused kernel keeps one output tile's chain of intermediates in shared
 // memory. Each intermediate is a region of pixels, row-major, and each

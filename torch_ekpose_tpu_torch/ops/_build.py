@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` source compiles in its own nvcc process, all started
 together, and one more nvcc call links the objects into one shared library
-with a plain C interface (the conv kernels share ``conv_common.cuh``,
-which the library's hash covers too). No source includes PyTorch's
+with a plain C interface (the fused conv chain's kernel includes
+``conv_common.cuh``, which the library's hash covers too). No source includes PyTorch's
 headers, so the build takes seconds, not the minutes a
 ``torch.utils.cpp_extension`` build takes, and its wall time is that of
 the slowest source. The library lands in ``build/torch_ekpose_tpu_torch/``
@@ -35,8 +35,8 @@ __all__ = ["build", "build_report", "check", "lib", "library_path",
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu", "block1.cu",
-           "conv3x3_sm90.cu")
+SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu",
+           "block1_sm90.cu", "conv3x3_sm90.cu")
 HEADERS = ("conv_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_ekpose_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -58,8 +58,10 @@ SIGNATURES = {
     ),
     # x, out, w[] , bias[], ch[], n_layers, b, h, w, pool, is_bf16, stream
     "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, out, w1, b1, w2, b2, c1, c2, b, h, w, conv1_only, is_bf16, stream
-    "ekp_block1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, w, b1, b2, b, h, w, fused, stream
+    "ekp_block1_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, d, stream
+    "ekp_block1_sm90_probe": (_P, _P, _P, _P),
     # x, out, w, bias, b, h, w, ci, co, pool, stream
     "ekp_conv3x3_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
