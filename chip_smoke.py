@@ -11,8 +11,10 @@ Phases (any failure raises and exits non-zero):
    ptxas's register / shared-memory / spill report, which must cover
    ``conv3x3_sm90.cu``'s and ``block1_sm90.cu``'s kernels;
 3. hold each decode kernel against its plain PyTorch twin on the card,
-   exactly, at the decode path's shapes, and time both (plain, kernel,
-   kernel, plain);
+   exactly, at the decode path's shapes (K = 32, 96 person rows) and
+   match at K = 96 and 128 and merge at 384 rows (over 128 opened), time
+   both (plain, kernel, kernel, plain), and read each kernel's own device
+   time from ``torch.profiler`` beside its CUDA-event time;
 4. hold each VGG-prefix conv kernel (``conv_chain``'s fused kernel,
    ``conv3x3_sm90``, ``conv1_fused``, ``block1_fused``) against its twin
    with TF32 off: float32 at the CPU tests' small shapes within 1e-4 of
@@ -20,32 +22,44 @@ Phases (any failure raises and exits non-zero):
    fused kernel there), bf16 at ``SM90_CHAINS`` of
    ``tests/torch_port_inputs.py`` through ``conv_chain``'s sm90 route, at
    small ragged and bias-50 shapes through ``block1_sm90`` and at the
-   prefix path's shapes (batch 8, 368x432; blocks 1-3, each layer of
-   blocks 2-3, conv1_1 and block 1 through ``block1_sm90``) within 0.02;
-   each call must raise each kernel's own launch count by what its route
-   launches (block 1 the fused kernel once, blocks 2-3 ``conv3x3_sm90``
-   once per layer); time twin, kernel and cuDNN's bf16 ``channels_last``
-   chain in turns (helpers of ``scripts/profile_torch_conv.py``, loaded
-   by path), and read ``block1_sm90``'s own device time in each mode from
+   prefix path's shapes (batch 8, 368x432; blocks 1-3, conv1_2 + pool and
+   each layer of blocks 2-3 through ``conv3x3_sm90``, conv1_1 and block 1
+   through ``block1_sm90``) within 0.02, and float32 block 1 through the
+   fused ``conv_chain`` kernel within 1e-4; each call must raise each
+   kernel's own launch count by what its route launches (bf16 block 1
+   ``block1_fused`` once, conv1_2 and each layer of blocks 2-3
+   ``conv3x3_sm90`` once, float32 block 1 the fused kernel once); time
+   twin, kernel and cuDNN's ``channels_last`` chain in the input's dtype
+   in turns (helpers of ``scripts/profile_torch_conv.py``, loaded by
+   path), and read ``block1_sm90``'s own device time in each mode from
    one ``torch.profiler`` pass beside its wrapper's;
 5. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
    (written by the JAX package) on the card and compare the packed
    buffers: integer fields exact, float fields within rtol 1e-5, and
-   people found in every scene;
+   people found in every scene; then decode 8 crowded frames
+   (``crowded_maps`` of ``tests/torch_port_inputs.py``) at K = 96 and 192
+   person rows on the card and on the CPU twins and compare them the
+   same way, with people found and over 64 peaks in a part;
 6. ``PoseEstimator("vgg2016")`` with seeded random weights in bfloat16
    serves a batch of 8 random 368x432 frames: each kernel's launch count
    must rise during that call, the maps must be finite, and the bf16 maps
    must keep cosine > 0.99 against float32 with TF32 off; the warm batch
    time is measured with CUDA events, and so is the batch-8 decode alone,
    in turns, on the forward's maps (random weights: no people) and on the
-   golden scenes tiled to 8 (4, 3, 2, 3 people);
+   golden scenes tiled to 8 (4, 3, 2, 3 people), and each decode kernel
+   alone on the inputs those two decodes gave it, by CUDA events and by
+   ``torch.profiler`` (helpers of ``scripts/profile_torch_decode.py``);
 7. the VGG prefix path: ``models.vgg.prefix_forward`` on the seeded
-   model's weights and bf16 frames, once per block-1 route, with the conv
+   model's weights and bf16 frames, once per block-1 route, and the
+   ``conv_chain`` route once on the same frames in float32, with the conv
    kernels' counts set to 0 before and read after (each must have
-   launched; per route exactly its block-1 kernels and ``conv3x3_sm90``
-   6 times, blocks 2 and 3); each route against ``backbone[:19]`` on
-   cuDNN (bf16: within 0.05 of max|cuDNN|; float32, TF32 off: cosine >
-   0.999); then the three routes and cuDNN timed in turns;
+   launched; per bf16 route exactly ``PREFIX_LAUNCHES``: its block-1
+   kernel, ``conv3x3_sm90`` for conv1_2 on the ``conv1_fused`` route and 6
+   times for blocks 2 and 3, the fused ``conv_chain`` kernel never; the
+   float32 pass the fused kernel once per block); each bf16 route against
+   ``backbone[:19]`` on cuDNN (within 0.05 of max|cuDNN|; float32, TF32
+   off: cosine > 0.999), the float32 pass within 1e-4 of cuDNN's float32;
+   then the three bf16 routes and cuDNN timed in turns;
 8. ``PoseServer``: four threads ``submit()`` a frame each and
    ``GET /healthz`` answers.
 
@@ -91,7 +105,7 @@ def max_abs_err(got, want) -> float:
     return worst
 
 
-def check_kernels(torch, prof, rng, inputs):
+def check_kernels(torch, prof, dec, rng, inputs):
     """Phase 3: each decode kernel == its twin on the card, with timings.
     Their bound is bytes: each input read once and each output written
     once (the arithmetic is a few compares per byte); no single PyTorch
@@ -122,8 +136,18 @@ def check_kernels(torch, prof, rng, inputs):
                     merge.merge_people_torch, margs, "csrc/merge.cu",
                     "torch_ekpose_tpu/ops/pallas_merge.py:133"))
 
-    results = []
-    for name, kernel, plain, kargs, source, replaces in records:
+    # the capacities a crowded scene needs: K = 96 and 128 (past 64-bit
+    # masks), a 384-row table with over 128 rows opened
+    larger = {"greedy_match": [
+        (f"K={k}", (torch.from_numpy(inputs.match_scores(rng, BATCH, k))
+                    .to(dev),)) for k in (96, 128)]}
+    big = inputs.merge_inputs(rng, BATCH, 128, 40)
+    larger["merge_people"] = [("cap=384", tuple(
+        torch.from_numpy(big[name]).to(dev) for name in (
+            "pair", "p1", "p2", "cid1", "cid2", "score", "n_valid",
+            "peak_score")) + (384,))]
+
+    def check(name, kernel, plain, kargs, label, reps):
         got = kernel(*kargs)
         want = plain(*kargs)
         torch.cuda.synchronize()
@@ -131,23 +155,42 @@ def check_kernels(torch, prof, rng, inputs):
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(got, want)
         exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"kernel {name}: shapes {[tuple(g.shape) for g in got]} "
-              f"exact={exact} max_abs_err={err}")
+        print(f"kernel {name} {label}: shapes "
+              f"{[tuple(g.shape) for g in got]} exact={exact} "
+              f"max_abs_err={err}")
         if not exact:
-            raise AssertionError(f"{name} differs from its twin ({err})")
+            raise AssertionError(f"{name} {label} differs from its twin "
+                                 f"({err})")
         plain_ms, ms = prof.turns([lambda: plain(*kargs),
-                                   lambda: kernel(*kargs)], reps=20)
+                                   lambda: kernel(*kargs)], reps=reps)
+        own, every = prof.device_ms(lambda: kernel(*kargs),
+                                    dec.KERNELS[name], reps=reps)
         nbytes = sum(t.numel() * t.element_size()
                      for t in (*kargs, *got) if torch.is_tensor(t))
         bound, bound_by = prof.bound_ms(0, nbytes, torch.float32)
-        print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
-              f"bound {bound:.6f} ms ({nbytes} bytes)")
+        print(f"kernel {name} {label}: {ms:.4f} ms by CUDA events, the "
+              f"kernel alone {own:.4f} ms by torch.profiler (all its "
+              f"wrapper's device work {every:.4f} ms), plain twin "
+              f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({nbytes} bytes)")
+        return got, {"shape": label, "max_abs_err": err, "ms": ms,
+                     "kernel_device_ms": own, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by}
+
+    results = []
+    for name, kernel, plain, kargs, source, replaces in records:
+        _, rec = check(name, kernel, plain, kargs, "path", reps=20)
+        calls = []
+        for label, extra in larger.get(name, []):
+            got, call = check(name, kernel, plain, extra, label, reps=5)
+            calls.append(call)
+            if name == "merge_people" and not int(got[1].sum(1).max()) > 128:
+                raise AssertionError("the cap-384 merge opened <= 128 rows")
         results.append({
             "name": name, "route": "cuda",
             "source": f"torch_ekpose_tpu_torch/{source}",
-            "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None, "wrapper": kernel,
+            "replaces": replaces, **{k: v for k, v in rec.items()
+                                     if k != "shape"},
+            "library_ms": None, "calls": calls, "wrapper": kernel,
         })
     if int(tables["n_valid"][0]) != 0:
         raise AssertionError("the merge check needs an empty image")
@@ -284,21 +327,24 @@ def check_conv_kernels(torch, prof, inputs):
 
 def check_prefix_path(torch, prof, kernels, model, frames):
     """Phase 7: the VGG prefix (blocks 1-3 on the model's own weights)
-    through the conv kernels, once per block-1 route, with every conv
-    kernel's launch count set to 0 just before and read just after; each
-    route must launch exactly ``prof.PREFIX_LAUNCHES`` (``conv3x3_sm90``
-    6 times: blocks 2 and 3; the fused ``conv_chain`` kernel once where
-    it runs block 1 or conv1_2) and each route is held against
-    ``backbone[:19]`` on cuDNN; then timed."""
+    through the conv kernels, once per block-1 route in bf16 and once on
+    the ``conv_chain`` route in float32, with every conv kernel's launch
+    count set to 0 just before and read just after; each bf16 route must
+    launch exactly ``prof.PREFIX_LAUNCHES`` (no fused ``conv_chain``
+    launch) and the float32 pass ``prof.PREFIX_LAUNCHES_F32``; each is
+    held against ``backbone[:19]`` on cuDNN; then the bf16 routes are
+    timed."""
     for rec in kernels:
         rec["wrapper"].launches = 0
     with torch.no_grad():
         outs, per_route = prof.drive_prefix(model, frames)
+        f32 = prof.drive_prefix_f32(model, frames)
     torch.cuda.synchronize()
     launches = {rec["name"]: rec["wrapper"].launches for rec in kernels}
     print(f"prefix path: routes {sorted(outs)}, output "
           f"{tuple(next(iter(outs.values())).shape)}, kernel launches "
-          f"{launches}, per route {per_route}")
+          f"{launches}, per bf16 route {per_route}, float32 conv_chain "
+          f"route {f32}")
     if min(launches.values()) < 1:
         raise AssertionError("the prefix path did not run every conv kernel")
     for rec in kernels:
@@ -332,6 +378,37 @@ def check_golden(torch, inputs):
     if problems or people != golden["n_humans"].tolist() or min(people) < 1:
         raise AssertionError("golden decode mismatch")
     return golden
+
+
+def check_crowded(torch, inputs):
+    """Phase 5, crowded frames: 12 people over clutter (more peaks per part
+    than K) decoded at K = 96 and 192 person rows (64 people) on the card
+    and by the CPU twins: integer fields exact, float fields within rtol
+    1e-5 (the refinement matmuls sum in another order), people found."""
+    import warnings
+
+    from torch_ekpose_tpu_torch.config import Config
+    from torch_ekpose_tpu_torch.decode import device as decode_device
+
+    cfg = Config()
+    cfg.DECODE.max_peaks_per_part, cfg.DECODE.max_people = 96, 64
+    heat, pafs = inputs.crowded_maps(np.random.default_rng(SEED), BATCH, 12)
+    decoder = decode_device.build_packed_decoder(cfg)
+    got = decoder(torch.from_numpy(heat).cuda(),
+                  torch.from_numpy(pafs).cuda()).cpu().numpy()
+    want = decoder(torch.from_numpy(heat), torch.from_numpy(pafs)).numpy()
+    problems = inputs.packed_mismatches(got, want, 96, 192, rtol=1e-5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # saturated K
+        people = [len(decode_device.packed_to_humans(row, HEIGHT, WIDTH,
+                                                      cfg)) for row in got]
+    peaks = max(int(decode_device.unpack_result(row, 96, 192).peak_valid
+                    .reshape(18, 96).sum(1).max()) for row in got)
+    print(f"crowded decode, K = 96, cap 192: {len(got)} frames, people "
+          f"{people}, most peaks in a part {peaks}, card vs CPU twins "
+          f"mismatches {problems}")
+    if problems or min(people) < 1 or peaks <= 64:
+        raise AssertionError("crowded decode mismatch")
 
 
 def cosine(a: np.ndarray, b: np.ndarray) -> float:
@@ -393,11 +470,13 @@ def check_main_path(torch, prof, rng, kernels):
     return est, frames
 
 
-def time_decodes(torch, prof, est, frames, golden):
+def time_decodes(torch, prof, dec, est, frames, golden):
     """The batch-8 decode alone, in turns: on the forward's maps of random
     frames (seeded random weights find no people, so match accepts little
     and merge has next to nothing to do) and on the golden scenes tiled
-    to 8 (people in every frame), both in the forward's NCHW layout."""
+    to 8 (people in every frame), both in the forward's NCHW layout; then
+    each decode kernel alone on the inputs each of those decodes gave it
+    (CUDA events and ``torch.profiler``)."""
     from torch_ekpose_tpu_torch.decode import device as decode_device
     from torch_ekpose_tpu_torch.runtime.estimator import nchw_to_nhwc
 
@@ -428,6 +507,17 @@ def time_decodes(torch, prof, est, frames, golden):
           f"forward's maps (no people) {empty_ms:.3f} ms, golden scenes "
           f"tiled to {BATCH} (people {people}) {people_ms:.3f} ms, "
           f"on {prof.card_line()}")
+    for label, maps in (("forward's maps", (paf, heat)),
+                        ("golden tiled", people_maps)):
+        with torch.inference_mode():
+            seen = dec.decode_kernel_inputs(
+                est._decode, nchw_to_nhwc(maps[1]), nchw_to_nhwc(maps[0]))
+        times = dec.time_kernels(seen, prof, reps=20)
+        print(f"decode kernels alone on the {label}: n_valid per image "
+              f"{seen['merge_people'][1][6].tolist()}, " + ", ".join(
+                  f"{name} {t['event_ms']:.4f} ms by events, "
+                  f"{t['kernel_device_ms']:.4f} ms kernel alone"
+                  for name, t in times.items()))
 
 
 def check_server(est, rng):
@@ -461,6 +551,15 @@ def check_server(est, rng):
         raise AssertionError(f"server failed: {errors}")
 
 
+def load_script(name: str):
+    """``scripts/<name>.py``, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(SCRIPTS, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main() -> int:
     import torch
 
@@ -472,10 +571,8 @@ def main() -> int:
 
     sys.path.insert(0, TESTS)
     import torch_port_inputs as inputs     # seeded inputs, shared with tests
-    spec = importlib.util.spec_from_file_location(
-        "profile_torch_conv", os.path.join(SCRIPTS, "profile_torch_conv.py"))
-    prof = importlib.util.module_from_spec(spec)   # timing and conv checks
-    spec.loader.exec_module(prof)
+    prof = load_script("profile_torch_conv")   # timing and conv checks
+    dec = load_script("profile_torch_decode")  # decode kernels' inputs
 
     card = prof.card_line()
     print(card)
@@ -497,11 +594,12 @@ def main() -> int:
     _build.lib()
 
     rng = np.random.default_rng(SEED)
-    kernels = check_kernels(torch, prof, rng, inputs)
+    kernels = check_kernels(torch, prof, dec, rng, inputs)
     convs, model, conv_frames = check_conv_kernels(torch, prof, inputs)
     golden = check_golden(torch, inputs)
+    check_crowded(torch, inputs)
     est, frames = check_main_path(torch, prof, rng, kernels)
-    time_decodes(torch, prof, est, frames, golden)
+    time_decodes(torch, prof, dec, est, frames, golden)
     check_prefix_path(torch, prof, convs, model, conv_frames)
     check_server(est, rng)
 

@@ -69,7 +69,7 @@ def test_nms_kernel_equals_twin(cuda, seed):
     assert out.shape == (B, 18, 46, 54) and torch.isinf(out).any()
 
 
-@pytest.mark.parametrize("k", [8, 32, 64])
+@pytest.mark.parametrize("k", [8, 32, 64, 96, 128, match.MAX_K])
 def test_match_kernel_equals_twin(cuda, k):
     scores = torch.from_numpy(inputs.match_scores(
         np.random.default_rng(k), B, k)).to(cuda)
@@ -87,6 +87,56 @@ def test_merge_kernel_equals_twin(cuda, cap):
     subset, active = _kernel_vs_twin(merge.merge_people,
                                      merge.merge_people_torch, *args, cap)
     assert not active[0].any() and active[1:].any()   # image 0 is empty
+
+
+@pytest.mark.parametrize("cap", [192, 384, merge.MAX_CAP])
+def test_merge_kernel_equals_twin_at_large_cap(cuda, cap):
+    """One image opens over 128 rows; the table is in dynamic shared
+    memory sized by cap, up to the limit."""
+    tables = inputs.merge_inputs(np.random.default_rng(7), B, 128, 40)
+    args = [torch.from_numpy(tables[f]).to(cuda) for f in (
+        "pair", "p1", "p2", "cid1", "cid2", "score", "n_valid",
+        "peak_score")]
+    subset, active = _kernel_vs_twin(merge.merge_people,
+                                     merge.merge_people_torch, *args, cap)
+    assert not active[0].any() and active.sum(1).max() > 128
+
+
+def test_decode_kernels_refuse_past_their_limits(cuda):
+    scores = torch.zeros((1, 19, match.MAX_K + 1, match.MAX_K + 1),
+                         device=cuda)
+    tables = inputs.merge_inputs(np.random.default_rng(0), 2, 8, 4)
+    args = [torch.from_numpy(tables[f]).to(cuda) for f in (
+        "pair", "p1", "p2", "cid1", "cid2", "score", "n_valid",
+        "peak_score")]
+    before = match.greedy_match.launches, merge.merge_people.launches
+    with pytest.raises(ValueError, match=f"K <= {match.MAX_K} "):
+        match.greedy_match(scores)
+    with pytest.raises(ValueError, match=f"cap <= {merge.MAX_CAP} "):
+        merge.merge_people(*args, merge.MAX_CAP + 1)
+    assert (match.greedy_match.launches,
+            merge.merge_people.launches) == before
+
+
+def test_crowded_decode_on_card_matches_cpu(cuda):
+    """Crowded frames at K = 96 and cap 192 (64 people): the card's decode
+    equals the CPU twins' on the same maps (integer fields exact, float
+    fields within rtol 1e-5: cuBLAS sums the refinement matmuls in
+    another order), with people found and more than 64 peaks in a part."""
+    heat, pafs = inputs.crowded_maps(np.random.default_rng(0), B, 12)
+    cfg = Config()
+    cfg.DECODE.max_peaks_per_part = 96
+    cfg.DECODE.max_people = 64
+    decoder = PD.build_packed_decoder(cfg)
+    got = decoder(torch.from_numpy(heat).to(cuda),
+                  torch.from_numpy(pafs).to(cuda)).cpu().numpy()
+    want = decoder(torch.from_numpy(heat), torch.from_numpy(pafs)).numpy()
+    assert inputs.packed_mismatches(got, want, 96, 192, rtol=1e-5) == []
+    with pytest.warns(RuntimeWarning, match="peak capacity saturated"):
+        people = [len(PD.packed_to_humans(row, 368, 432, cfg)) for row in got]
+    assert min(people) >= 1
+    assert PD.unpack_result(got[0], 96, 192).peak_valid.reshape(
+        18, 96).sum(1).max() > 64
 
 
 def test_decode_on_card_matches_golden(cuda):
@@ -169,9 +219,10 @@ def test_conv_chain_kernel_matches_twin(cuda, dtype, h, w, chain, pool, bias):
                   launches=_routes(fused=1, sm90=0))
 
 
-def _routes(fused, sm90):
+def _routes(fused, sm90, block1_sm90=0):
     """``_conv_vs_twin``'s ``launches`` for a ``conv_chain`` call."""
-    return {cc.conv_chain: fused, cc.conv3x3_sm90: sm90}
+    return {cc.conv_chain: fused, cc.conv3x3_sm90: sm90,
+            block1.block1_fused: block1_sm90}
 
 
 @pytest.mark.parametrize("name", list(inputs.SM90_CHAINS))
@@ -194,10 +245,10 @@ def test_sm90_kernel_refuses_what_it_does_not_take(cuda):
     (w, b), (w_narrow, b_narrow) = _chain_params(rng, [(64, 128), (64, 64)],
                                                  cuda)
     before = cc.conv3x3_sm90.launches
-    with pytest.raises(ValueError, match="ci % 64 == 0 and co % 128"):
+    with pytest.raises(ValueError, match="ci % 64 == 0 and co % 64"):
         cc.conv3x3_sm90(x[..., :32].contiguous(), w[:, :, :32], b)
-    with pytest.raises(ValueError, match="ci % 64 == 0 and co % 128"):
-        cc.conv3x3_sm90(x, w_narrow, b_narrow)
+    with pytest.raises(ValueError, match="ci % 64 == 0 and co % 64"):
+        cc.conv3x3_sm90(x, w_narrow[..., :48], b_narrow[:48])
     with pytest.raises(ValueError, match="expected bfloat16"):
         cc.conv3x3_sm90(x.float(), w, b)
     assert cc.conv3x3_sm90.launches == before
@@ -295,15 +346,33 @@ def test_block1_wgmma_descriptor(cuda):
 @pytest.mark.parametrize("block", [1, 2, 3])
 def test_conv_chain_at_vgg_prefix_shapes(cuda, block):
     """bf16, batch 1, the prefix's full 368x432 widths, seeded weights:
-    block 1 on the fused kernel, blocks 2 and 3 one sm90 launch a layer."""
+    block 1 on ``block1_sm90`` (one ``block1_fused`` launch), blocks 2 and
+    3 one sm90 launch a layer."""
     torch.manual_seed(block)
     model = VGG19Backbone(device=cuda)
     h, w, c = {1: (368, 432, 3), 2: (184, 216, 64), 3: (92, 108, 128)}[block]
     x = torch.rand((1, h, w, c), device=cuda).to(torch.bfloat16)
     params = chain_params(model, block)
+    assert cc.plan_chain([c] + [p[0].shape[3] for p in params], x.dtype,
+                         True) == ("block1" if block == 1 else "sm90")
     _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x, params, pool=True,
-                  launches=_routes(fused=1, sm90=0) if block == 1
-                  else _routes(fused=0, sm90=len(params)))
+                  launches=_routes(fused=0, sm90=0, block1_sm90=1)
+                  if block == 1 else _routes(fused=0, sm90=len(params)))
+
+
+def test_conv1_2_at_vgg_prefix_shape_takes_bn64(cuda):
+    """conv1_2 + pool after conv1_1 alone (the ``conv1_fused`` route's
+    second call), batch 1 at 368x432: one ``conv3x3_sm90`` launch at N
+    tile 64, no fused ``conv_chain`` launch."""
+    torch.manual_seed(1)
+    model = VGG19Backbone(device=cuda)
+    (w1, b1), (w2, b2) = chain_params(model, 1)
+    x = torch.rand((1, 368, 432, 3), device=cuda).to(torch.bfloat16)
+    y = block1.conv1_fused_torch(x, w1, b1)
+    assert cc.plan_chain([64, 64], y.dtype, True) == "sm90"
+    assert cc.sm90_tile_n(64) == 64
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, y, [(w2, b2)],
+                  pool=True, launches=_routes(fused=0, sm90=1))
 
 
 def test_prefix_kernels_match_cudnn_backbone(cuda):

@@ -16,20 +16,32 @@ from typing import Dict
 
 import numpy as np
 
+from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
-__all__ = ["SM90_CHAINS", "chain_arrays", "match_scores", "merge_inputs",
-           "nms_maps", "packed_mismatches"]
+__all__ = ["SM90_CHAINS", "chain_arrays", "crowded_maps", "match_scores",
+           "merge_inputs", "nms_maps", "packed_mismatches"]
+
+#: a standing person's 18 keypoints around the neck, in pixels at scale 1
+SKELETON = np.array([
+    (0, -95), (0, -70), (-25, -70), (-32, -35), (-36, 0), (25, -70),
+    (32, -35), (36, 0), (-18, 0), (-20, 45), (-20, 90), (18, 0),
+    (20, 45), (20, 90), (-8, -103), (8, -103), (-17, -99), (17, -99),
+], np.float64)
 
 #: bf16 chains for ``conv_chain``'s sm90 route at small shapes, by id:
 #: (input ``[B, H, W, ci]``, ``[(ci, co), ...]``, pool, bias or None for
 #: seeded biases). Ragged sides, W not a multiple of 16, and a bias-50
-#: border (a relu(50) leaking past the image would show).
+#: border (a relu(50) leaking past the image would show); the ``bn64``
+#: chains have a layer with ``co % 128 != 0`` (N tile 64, 16x16 pixels).
 SM90_CHAINS = {
     "ragged_pool": ((2, 20, 28, 64), [(64, 128), (128, 128)], True, None),
     "ci128": ((1, 12, 18, 128), [(128, 256)], False, None),
     "bias50": ((1, 16, 24, 64), [(64, 128), (128, 128)], False, 50.0),
     "w22": ((2, 10, 22, 64), [(64, 128)], True, None),
+    "bn64_ragged_pool": ((2, 20, 28, 64), [(64, 64)], True, None),
+    "bn64_bias50": ((1, 18, 24, 64), [(64, 64)], False, 50.0),
+    "bn64_mixed": ((1, 12, 34, 128), [(128, 64), (64, 192)], True, None),
 }
 
 
@@ -94,6 +106,50 @@ def merge_inputs(rng: np.random.Generator, b: int, k: int,
         out["score"][bi] = score.reshape(-1)[order]
         out["n_valid"][bi] = valid.sum()
     return out
+
+
+def crowded_maps(rng: np.random.Generator, b: int, n_people: int,
+                 h: int = 46, w: int = 54, clutter: float = 0.3):
+    """Decoder inputs for crowded frames: heatmaps ``[B, H, W, 19]`` and
+    PAFs ``[B, H, W, 38]`` float32 at stride 8.
+
+    Each frame holds ``n_people`` people (the skeleton at scale 0.3-0.5,
+    every keypoint inside the frame): a unit Gaussian (sigma 7 px) per
+    keypoint and, for each of the 19 limbs, unit vectors along the
+    segment within one cell of it. Under them lies clutter: uniform noise
+    in ``[0, clutter)`` on every part channel, which leaves on the order
+    of a hundred local maxima above the heatmap threshold per part, and
+    normal noise of 0.02 on the PAFs. Limbs join two keypoints of one
+    person that are both in the frame, never a point outside it.
+    """
+    stride = constants.DOWNSAMPLE
+    sigma = constants.TARGET_SIGMA
+    gy, gx = np.mgrid[0:h, 0:w]
+    cx, cy = gx * stride + stride / 2 - 0.5, gy * stride + stride / 2 - 0.5
+    heat = rng.uniform(0, clutter, (b, h, w, 19))
+    pafs = rng.normal(0, 0.02, (b, h, w, 38))
+    for bi in range(b):
+        for _ in range(n_people):
+            scale = rng.uniform(0.3, 0.5)
+            lo = -SKELETON.min(0) * scale + stride
+            hi = np.array([w, h]) * stride - SKELETON.max(0) * scale - stride
+            kp = rng.uniform(lo, hi) + SKELETON * scale + rng.normal(
+                0, 2, (18, 2))
+            for j, (x, y) in enumerate(kp):
+                g = np.exp(-((cx - x) ** 2 + (cy - y) ** 2) / (2 * sigma ** 2))
+                heat[bi, :, :, j] = np.maximum(heat[bi, :, :, j], g)
+            for (pa, pb), (chx, chy) in zip(LIMB_PAIRS,
+                                            constants.COCO_PAIRS_NET):
+                a, d = kp[pa], kp[pb] - kp[pa]
+                length = np.hypot(*d)
+                u = d / length
+                t = (cx - a[0]) * u[0] + (cy - a[1]) * u[1]
+                perp = np.abs((cx - a[0]) * u[1] - (cy - a[1]) * u[0])
+                on = (t >= -stride) & (t <= length + stride) & (perp <= stride)
+                pafs[bi, on, chx] = u[0]
+                pafs[bi, on, chy] = u[1]
+    heat[..., 18] = np.clip(1 - heat[..., :18].max(-1), 0, 1)
+    return heat.astype(np.float32), pafs.astype(np.float32)
 
 
 def chain_arrays(rng: np.random.Generator, shape, chain, bias=None):

@@ -33,11 +33,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="reference-format .pth checkpoint")
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on")
-    parser.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES),
-                        help="forward compute dtype (int8 modes are not "
-                        "ported yet and are refused)")
+    parser.add_argument("--dtype", default=None, choices=sorted(_DTYPES),
+                        help="forward compute dtype (default bfloat16, or "
+                        "float32 under --precision highest; int8 modes are "
+                        "not ported yet and are refused)")
     parser.add_argument("--precision", default="fast", choices=PRECISIONS,
-                        help="'highest' turns TF32 off in the forward")
+                        help="'highest' turns TF32 off in the forward and "
+                        "implies --dtype float32 unless it is set")
     parser.add_argument("--preprocess", default="vgg",
                         choices=["vgg", "rtpose"])
     parser.add_argument("--dest-size", type=int, default=368,
@@ -53,8 +55,30 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> None:
+def resolve_dtype(args) -> None:
+    """Resolve an unset ``--dtype`` against ``--precision`` (idempotent),
+    as the JAX package's CLI does: ``highest`` reproduces the reference's
+    float32 numerics, so it turns the unset dtype into float32 (bf16
+    operands would make it a no-op); an explicit ``--dtype`` always wins;
+    ``highest`` with an int8 mode is a contradiction and is refused."""
+    if args.dtype is None:
+        args.dtype = "float32" if args.precision == "highest" else "bfloat16"
+    if args.precision == "highest" and args.dtype in ("int8", "int8_static"):
+        raise SystemExit(
+            "--precision highest (true-f32 multiplies) cannot combine "
+            f"with --dtype {args.dtype}; drop one of the two flags"
+        )
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line, with ``--dtype`` resolved."""
     args = build_parser().parse_args(argv)
+    resolve_dtype(args)
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if args.ckpt is None:
         print("WARNING: no checkpoint given; using random initialization")
         state_dict = None

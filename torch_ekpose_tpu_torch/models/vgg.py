@@ -78,10 +78,12 @@ def prefix_forward(model: VGG19Backbone, x, block1: str = "conv_chain"):
     """VGG19 blocks 1-3 (``backbone[:19]``) through the conv kernels:
     NHWC ``[B, H, W, 3]`` -> ``[B, H/8, W/8, 256]`` in ``x.dtype``.
 
-    ``block1`` picks block 1's kernel: ``conv_chain`` (both convs and the
-    pool), ``block1_fused`` (the same in one 27-deep-patch kernel), or
+    ``block1`` picks block 1's entry point: ``conv_chain`` (both convs
+    and the pool; in bf16 it routes them to ``block1_fused``'s kernel),
+    ``block1_fused`` (the same in one 27-deep-patch kernel), or
     ``conv1_fused`` (conv1_1 alone, then ``conv_chain`` for conv1_2 and
-    the pool). Blocks 2 and 3 always go through ``conv_chain``.
+    the pool: one ``conv3x3_sm90`` launch in bf16). Blocks 2 and 3 always
+    go through ``conv_chain``.
     """
     first = chain_params(model, 1)
     if block1 == "conv_chain":

@@ -30,8 +30,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["build", "build_report", "check", "lib", "library_path",
-           "stream_of"]
+__all__ = ["SMEM_OPTIN", "build", "build_report", "check", "lib",
+           "library_path", "stream_of"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -43,6 +43,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
+
+#: shared memory one block may opt into on Hopper (H100, H200): 227 KB
+SMEM_OPTIN = 232_448
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point -> argtypes; each returns a cudaError_t as int
@@ -62,8 +65,8 @@ SIGNATURES = {
     "ekp_block1_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # a, b, d, stream
     "ekp_block1_sm90_probe": (_P, _P, _P, _P),
-    # x, out, w, bias, b, h, w, ci, co, pool, stream
-    "ekp_conv3x3_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, w, bias, b, h, w, ci, co, pool, tile_n, stream
+    "ekp_conv3x3_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

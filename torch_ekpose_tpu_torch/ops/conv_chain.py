@@ -9,12 +9,14 @@ sees zeros beyond the image border, exactly as the unfused chain does.
 The public layouts are the JAX package's: ``x`` NHWC, each weight
 ``[3, 3, ci, co]`` HWIO, each bias ``[co]``. The TPU kernel's ``row_tile``
 and ``interpret`` knobs are not carried over. On a card, :func:`plan_chain`
-picks the kernel by shape: a bf16 chain whose every layer has
-``ci % 64 == 0`` and ``co % 128 == 0`` (vgg2016's blocks 2 and 3) runs as
+picks the kernel by shape: vgg2016's block 1 (bf16 ``[3, 64, 64]`` with
+the pool) runs as one ``block1_fused`` launch (``ops/block1.py``, the
+same function); a bf16 chain whose every layer has ``ci % 64 == 0`` and
+``co % 64 == 0`` (blocks 2 and 3, conv1_2 after conv1_1 alone) runs as
 one :func:`conv3x3_sm90` launch per layer (TMA + wgmma, the pool in the
 last launch, each intermediate a bf16 NHWC tensor); every other chain
-(block 1, float32, narrow chains) runs fused in one ``ekp_conv_chain``
-launch, 2-D tiles with halo recompute. :func:`pack_weight` and
+(float32, narrow chains) runs fused in one ``ekp_conv_chain`` launch,
+2-D tiles with halo recompute. :func:`pack_weight` and
 :func:`pack_weight_kmajor` put a weight into each kernel's layout; they
 run on every call, a few small copies beside the kernel.
 """
@@ -30,15 +32,16 @@ import torch.nn.functional as F
 from torch_ekpose_tpu_torch.ops import _build
 
 __all__ = ["conv3x3_sm90", "conv_chain", "conv_chain_torch", "pack_weight",
-           "pack_weight_kmajor", "pad_ch", "plan_chain"]
+           "pack_weight_kmajor", "pad_ch", "plan_chain", "sm90_tile_n"]
 
 Params = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 #: the most layers one ``ekp_conv_chain`` launch takes (``kMaxLayers``)
 MAX_LAYERS = 8
 _DTYPES = (torch.bfloat16, torch.float32)
-#: ``ekp_conv3x3_sm90``'s K chunk and N tile: ci and co must be multiples
-SM90_CI, SM90_CO = 64, 128
+#: ``ekp_conv3x3_sm90``'s K chunk (ci must be a multiple) and its two
+#: N tiles (co must be a multiple of one)
+SM90_CI, SM90_TILES_N = 64, (128, 64)
 
 
 def pad_ch(c: int) -> int:
@@ -86,15 +89,31 @@ def pad_bias(b: torch.Tensor, n_pad: int) -> torch.Tensor:
     return F.pad(b.float(), (0, n_pad - b.shape[0])).contiguous()
 
 
-def plan_chain(chans: Sequence[int], dtype: torch.dtype) -> str:
+def sm90_tile_n(co: int):
+    """``ekp_conv3x3_sm90``'s N tile for ``co`` output channels: 128 where
+    ``co % 128 == 0`` (blocks 2-3), else 64 where ``co % 64 == 0``
+    (conv1_2), else None (the kernel does not take it)."""
+    return next((n for n in SM90_TILES_N if co % n == 0), None)
+
+
+def plan_chain(chans: Sequence[int], dtype: torch.dtype,
+               pool: bool = False) -> str:
     """The kernel a CUDA chain takes, from its channels (the input's, then
-    each layer's output) and dtype: ``"sm90"`` (one ``conv3x3_sm90``
-    launch per layer) when it is bf16 and every layer has ``ci % 64 == 0``
-    and ``co % 128 == 0``, else ``"fused"`` (one ``ekp_conv_chain``
-    launch)."""
+    each layer's output), dtype and pool: ``"block1"`` (one
+    ``block1_fused`` launch) for the pooled two-layer chain from 3
+    channels that :func:`~torch_ekpose_tpu_torch.ops.block1.plan_block1`
+    sends to ``block1_sm90`` (bf16, 64 and 64 channels); else ``"sm90"``
+    (one ``conv3x3_sm90`` launch per layer) when it is bf16 and every
+    layer has ``ci % 64 == 0`` and ``co % 64 == 0``; else ``"fused"`` (one
+    ``ekp_conv_chain`` launch)."""
+    from torch_ekpose_tpu_torch.ops.block1 import plan_block1
+
     layers = list(zip(chans, chans[1:]))
+    if pool and len(layers) == 2 and chans[0] == 3 and plan_block1(
+            chans[1], chans[2], dtype) == "sm90":
+        return "block1"
     if dtype == torch.bfloat16 and layers and all(
-            ci % SM90_CI == 0 and co % SM90_CO == 0 for ci, co in layers):
+            ci % SM90_CI == 0 and sm90_tile_n(co) for ci, co in layers):
         return "sm90"
     return "fused"
 
@@ -137,8 +156,8 @@ def conv3x3_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``[B, H, W, ci]`` -> ``[B, H, W, co]`` or ``[B, H/2, W/2, co]``.
 
     A CPU tensor takes the twin; a CUDA tensor launches
-    ``ekp_conv3x3_sm90`` (bf16, ``ci % 64 == 0``, ``co % 128 == 0``,
-    float32 sums) or raises.
+    ``ekp_conv3x3_sm90`` (bf16, ``ci % 64 == 0``, ``co % 64 == 0``, the N
+    tile :func:`sm90_tile_n`, float32 sums) or raises.
     """
     if pool and (x.shape[1] % 2 or x.shape[2] % 2):
         raise ValueError("pooled conv3x3_sm90 needs even H and W")
@@ -151,9 +170,10 @@ def conv3x3_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"{x.dtype} {tuple(x.shape)}")
     bsz, h, w_, ci = x.shape
     co = _check_layer("conv3x3_sm90", x, ci, w, b, 1)
-    if ci % SM90_CI or co % SM90_CO:
+    tile_n = sm90_tile_n(co)
+    if ci % SM90_CI or tile_n is None:
         raise ValueError(f"conv3x3_sm90: needs ci % {SM90_CI} == 0 and "
-                         f"co % {SM90_CO} == 0, got {ci} -> {co}")
+                         f"co % {SM90_TILES_N[-1]} == 0, got {ci} -> {co}")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("conv3x3_sm90: input not 16-byte aligned")
@@ -164,7 +184,7 @@ def conv3x3_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):
         err = _build.lib().ekp_conv3x3_sm90(
             _build.ptr(x), _build.ptr(out), _build.ptr(wk), _build.ptr(bias),
-            bsz, h, w_, ci, co, int(pool), _build.stream_of(x))
+            bsz, h, w_, ci, co, int(pool), tile_n, _build.stream_of(x))
     _build.check(err, "ekp_conv3x3_sm90")
     conv3x3_sm90.launches += 1
     return out
@@ -207,7 +227,8 @@ def conv_chain(x: torch.Tensor, params: Params,
     A CPU tensor takes the twin; a CUDA tensor runs the kernel
     :func:`plan_chain` picks (bf16 or float32, float32 sums) or raises.
     ``conv_chain.launches`` counts ``ekp_conv_chain`` launches only; the
-    sm90 route's launches are counted by ``conv3x3_sm90.launches``.
+    other routes' launches are counted by ``conv3x3_sm90.launches`` and
+    ``block1_fused.launches``.
     """
     params = list(params)
     if pool and (x.shape[1] % 2 or x.shape[2] % 2):
@@ -222,8 +243,13 @@ def conv_chain(x: torch.Tensor, params: Params,
     for w, b in params:
         chans.append(_check_layer("conv_chain", x, chans[-1], w, b,
                                   len(chans)))
-    if plan_chain(chans, x.dtype) == "fused":
+    route = plan_chain(chans, x.dtype, pool)
+    if route == "fused":
         return _conv_chain_fused(x, params, chans, pool)
+    if route == "block1":
+        from torch_ekpose_tpu_torch.ops.block1 import block1_fused
+
+        return block1_fused(x, *params[0], *params[1])
     last = len(params) - 1
     for i, (w, b) in enumerate(params):
         x = conv3x3_sm90(x, w, b, pool=pool and i == last)

@@ -16,10 +16,28 @@ import torch
 
 from torch_ekpose_tpu_torch.ops import _build
 
-__all__ = ["greedy_match", "greedy_match_torch", "MAX_K"]
+__all__ = ["MAX_K", "check_k", "greedy_match", "greedy_match_torch",
+           "smem_bytes"]
 
-#: largest K the CUDA kernel takes (lane r owns rows r and r + 32)
-MAX_K = 64
+
+def smem_bytes(k: int) -> int:
+    """Dynamic shared memory of one ``ekp_greedy_match`` block: the
+    ``[K, K | 1]`` float32 tile (rows padded to an odd length) and the
+    ``ceil(K / 32)`` words of used-column bits."""
+    return 4 * (k * (k | 1) + -(-k // 32))
+
+
+#: largest K whose block fits the opt-in shared memory (241 on Hopper)
+MAX_K = max(k for k in range(1, 512) if smem_bytes(k) <= _build.SMEM_OPTIN)
+
+
+def check_k(k: int) -> None:
+    """Raise unless the CUDA kernel takes ``K = k``."""
+    if not 0 < k <= MAX_K:
+        raise ValueError(
+            f"greedy_match: K = {k} needs {smem_bytes(k)} bytes of shared "
+            f"memory; the CUDA kernel takes 1 <= K <= {MAX_K} "
+            f"({_build.SMEM_OPTIN} bytes)")
 
 Match = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -68,7 +86,7 @@ def greedy_match(scores: torch.Tensor) -> Match:
     valid bool), each [..., K].
 
     A CPU tensor takes the twin; a CUDA tensor launches
-    ``ekp_greedy_match`` (one warp per matrix, K <= 64).
+    ``ekp_greedy_match`` (one warp per matrix, K <= :data:`MAX_K`).
     """
     if scores.device.type == "cpu":
         return greedy_match_torch(scores)
@@ -76,11 +94,12 @@ def greedy_match(scores: torch.Tensor) -> Match:
         raise ValueError(f"greedy_match: unsupported device {scores.device}")
     k = scores.shape[-1]
     if (scores.dtype != torch.float32 or scores.dim() < 2
-            or scores.shape[-2] != k or not 0 < k <= MAX_K):
+            or scores.shape[-2] != k):
         raise ValueError(
-            f"greedy_match: expected float32 [..., K, K] with K <= {MAX_K}, "
+            f"greedy_match: expected float32 [..., K, K], "
             f"got {scores.dtype} {tuple(scores.shape)}"
         )
+    check_k(k)
     lead = scores.shape[:-2]
     x = scores.contiguous()
     n_mats = x.numel() // (k * k)

@@ -15,11 +15,35 @@ import torch
 
 from torch_ekpose_tpu_torch.ops import _build
 
-__all__ = ["merge_people", "merge_people_torch", "MAX_CAP"]
+__all__ = ["MAX_CAP", "check_cap", "merge_people", "merge_people_torch",
+           "smem_bytes"]
 
-#: largest person table the CUDA kernel holds in shared memory
-MAX_CAP = 128
 _N_PARTS = 18
+#: connections ``ekp_merge_people`` stages in shared memory at a time
+#: (``kChunk`` in ``csrc/merge.cu``)
+CHUNK = 1024
+
+
+def smem_bytes(cap: int) -> int:
+    """Dynamic shared memory of one ``ekp_merge_people`` block: eight
+    staged words per connection of a chunk, and the column-major
+    ``[20, cap | 1]`` float32 table (an odd column length)."""
+    return 4 * (8 * CHUNK + 20 * (cap | 1))
+
+
+#: largest person table whose block fits the opt-in shared memory (2495
+#: rows on Hopper)
+MAX_CAP = max(c for c in range(1, 4096)
+              if smem_bytes(c) <= _build.SMEM_OPTIN)
+
+
+def check_cap(cap: int) -> None:
+    """Raise unless the CUDA kernel takes a table of ``cap`` rows."""
+    if not 0 < cap <= MAX_CAP:
+        raise ValueError(
+            f"merge_people: cap = {cap} needs {smem_bytes(cap)} bytes of "
+            f"shared memory; the CUDA kernel takes 1 <= cap <= {MAX_CAP} "
+            f"({_build.SMEM_OPTIN} bytes)")
 
 
 def merge_people_torch(
@@ -98,7 +122,7 @@ def merge_people_torch(
 def merge_people(
     pair, p1, p2, cid1, cid2, score, n_valid, peak_score, cap: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Person merge for a batch, one image per warp on the card.
+    """Person merge for a batch, one image per block on the card.
 
     ``pair``/``p1``/``p2``/``cid1``/``cid2`` int32 and ``score`` float32
     are [B, n_slots], compacted valid-first; ``n_valid`` int32 [B] bounds
@@ -106,7 +130,7 @@ def merge_people(
     (subset [B, cap, 20] f32, active [B, cap] bool).
 
     A CPU tensor takes the twin; a CUDA tensor launches
-    ``ekp_merge_people`` (cap <= 128).
+    ``ekp_merge_people`` (cap <= :data:`MAX_CAP`).
     """
     if pair.device.type == "cpu":
         return merge_people_torch(
@@ -126,12 +150,13 @@ def merge_people(
             or score.dtype != torch.float32 or score.shape != (b, n_slots)
             or n_valid.dtype != torch.int32 or n_valid.shape != (b,)
             or peak_score.dtype != torch.float32 or peak_score.dim() != 2
-            or peak_score.shape[0] != b or not 0 < cap <= MAX_CAP):
+            or peak_score.shape[0] != b):
         raise ValueError(
             "merge_people: expected int32 [B, n] connections, float32 "
-            f"[B, n] scores, int32 [B] n_valid, float32 [B, m] peak scores "
-            f"and cap <= {MAX_CAP}"
+            "[B, n] scores, int32 [B] n_valid and float32 [B, m] peak "
+            "scores"
         )
+    check_cap(cap)
     subset = torch.empty((b, cap, 20), dtype=torch.float32, device=pair.device)
     active = torch.empty((b, cap), dtype=torch.bool, device=pair.device)
     with torch.cuda.device(pair.device):
