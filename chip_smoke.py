@@ -6,33 +6,38 @@ card.
 Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit; no card, no run;
-2. build the six kernel sources from ``torch_ekpose_tpu_torch/csrc`` with
+2. build the seven kernel sources from ``torch_ekpose_tpu_torch/csrc`` with
    nvcc for sm_90a (one process each, all started together) and print
    ptxas's register / shared-memory / spill report, which must cover
-   ``conv3x3_sm90.cu``'s and ``block1_sm90.cu``'s kernels;
+   ``conv3x3_sm90.cu``'s, ``conv3x3_f32.cu``'s and ``block1_sm90.cu``'s
+   kernels;
 3. hold each decode kernel against its plain PyTorch twin on the card,
    exactly, at the decode path's shapes (K = 32, 96 person rows) and
-   match at K = 96 and 128 and merge at 384 rows (over 128 opened), time
-   both (plain, kernel, kernel, plain), and read each kernel's own device
-   time from ``torch.profiler`` beside its CUDA-event time;
-4. hold each VGG-prefix conv kernel (``conv_chain``'s fused kernel,
-   ``conv3x3_sm90``, ``conv1_fused``, ``block1_fused``) against its twin
-   with TF32 off: float32 at the CPU tests' small shapes within 1e-4 of
-   max|twin| (``conv1_fused`` and ``block1_fused`` take ``conv_chain``'s
-   fused kernel there), bf16 at ``SM90_CHAINS`` of
-   ``tests/torch_port_inputs.py`` through ``conv_chain``'s sm90 route, at
-   small ragged and bias-50 shapes through ``block1_sm90`` and at the
-   prefix path's shapes (batch 8, 368x432; blocks 1-3, conv1_2 + pool and
-   each layer of blocks 2-3 through ``conv3x3_sm90``, conv1_1 and block 1
-   through ``block1_sm90``) within 0.02, and float32 block 1 through the
-   fused ``conv_chain`` kernel within 1e-4; each call must raise each
-   kernel's own launch count by what its route launches (bf16 block 1
-   ``block1_fused`` once, conv1_2 and each layer of blocks 2-3
-   ``conv3x3_sm90`` once, float32 block 1 the fused kernel once); time
-   twin, kernel and cuDNN's ``channels_last`` chain in the input's dtype
-   in turns (helpers of ``scripts/profile_torch_conv.py``, loaded by
-   path), and read ``block1_sm90``'s own device time in each mode from
-   one ``torch.profiler`` pass beside its wrapper's;
+   match at K = 96, 128 and 241 and merge at 384 rows (over 128 opened),
+   time both (plain, kernel, kernel, plain), and read each kernel's own
+   device time from ``torch.profiler`` beside its CUDA-event time; give
+   match its latency bound (the rounds its data needs x 5 dependent
+   shuffles, at the SM clock and the shuffle latency measured here, plus
+   its bytes at the HBM rate);
+4. with TF32 off for cuDNN and for matmuls (both flags printed), hold each
+   VGG-prefix conv kernel (``conv3x3_f32``, ``conv_chain``'s fused
+   kernel, ``conv3x3_sm90``, ``conv1_fused``, ``block1_fused``) against
+   its twin: float32 at the CPU tests' small shapes within 1e-4 of
+   max|twin| through ``conv3x3_f32``, one launch a layer (``conv1_fused``
+   and ``block1_fused`` take it too in float32), bf16 at those narrow
+   shapes through the fused ``conv_chain.cu`` kernel, at ``SM90_CHAINS``
+   of ``tests/torch_port_inputs.py`` through ``conv_chain``'s sm90 route,
+   at small ragged and bias-50 shapes through ``block1_sm90`` and at the
+   prefix path's shapes (batch 8, 368x432; bf16 blocks 1-3, conv1_2 +
+   pool and each layer of blocks 2-3 through ``conv3x3_sm90``, conv1_1
+   and block 1 through ``block1_sm90``, a narrow ``[3, 32, 32]`` block 1
+   through ``conv_chain.cu``) within 0.02, and float32 blocks 1-3 through
+   ``conv3x3_f32`` within 1e-4; each call must raise each kernel's own
+   launch count by what its route launches; time twin, kernel and
+   cuDNN's ``channels_last`` chain in the input's dtype in turns
+   (helpers of ``scripts/profile_torch_conv.py``, loaded by path), and
+   read ``block1_sm90``'s own device time in each mode from one
+   ``torch.profiler`` pass beside its wrapper's;
 5. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
    (written by the JAX package) on the card and compare the packed
    buffers: integer fields exact, float fields within rtol 1e-5, and
@@ -53,13 +58,14 @@ Phases (any failure raises and exits non-zero):
    model's weights and bf16 frames, once per block-1 route, and the
    ``conv_chain`` route once on the same frames in float32, with the conv
    kernels' counts set to 0 before and read after (each must have
-   launched; per bf16 route exactly ``PREFIX_LAUNCHES``: its block-1
-   kernel, ``conv3x3_sm90`` for conv1_2 on the ``conv1_fused`` route and 6
-   times for blocks 2 and 3, the fused ``conv_chain`` kernel never; the
-   float32 pass the fused kernel once per block); each bf16 route against
-   ``backbone[:19]`` on cuDNN (within 0.05 of max|cuDNN|; float32, TF32
-   off: cosine > 0.999), the float32 pass within 1e-4 of cuDNN's float32;
-   then the three bf16 routes and cuDNN timed in turns;
+   launched but ``conv_chain.cu``'s fused kernel, which no prefix route
+   takes; per bf16 route exactly ``PREFIX_LAUNCHES``: its block-1 kernel,
+   ``conv3x3_sm90`` for conv1_2 on the ``conv1_fused`` route and 6 times
+   for blocks 2 and 3; the float32 pass ``conv3x3_f32`` once per layer, 8
+   times); each bf16 route against ``backbone[:19]`` on cuDNN (within 0.05
+   of max|cuDNN|; float32, TF32 off: cosine > 0.999), the float32 pass
+   within 1e-4 of cuDNN's float32; then the three bf16 routes and cuDNN
+   timed in turns, and the float32 pass and cuDNN's float32 in turns;
 8. ``PoseServer``: four threads ``submit()`` a frame each and
    ``GET /healthz`` answers.
 
@@ -109,11 +115,21 @@ def check_kernels(torch, prof, dec, rng, inputs):
     """Phase 3: each decode kernel == its twin on the card, with timings.
     Their bound is bytes: each input read once and each output written
     once (the arithmetic is a few compares per byte); no single PyTorch
-    call computes any of them, so ``library_ms`` is null."""
+    call computes any of them, so ``library_ms`` is null. Match also gets
+    a latency bound: its rounds are a dependent chain, each at least one
+    warp reduction (5 dependent shuffles), so the rounds this run's data
+    needs (the most of any matrix: its matches, and one more that finds
+    none) x 5 x the shuffle latency measured here, at the SM clock
+    measured here, plus the bytes at the HBM rate."""
     from torch_ekpose_tpu_torch.ops import match, merge, nms
 
     dev = torch.device("cuda")
     records = []
+    shfl_cycles, redux_cycles = match._latency_probe()
+    ghz = dec.sm_clock_ghz()
+    print(f"latency probe: a dependent warp shuffle {shfl_cycles:.1f} SM "
+          f"cycles, a dependent redux.sync {redux_cycles:.1f}; SM clock "
+          f"{ghz:.3f} GHz")
 
     maps = torch.from_numpy(
         inputs.nms_maps(rng, BATCH, 19, HEIGHT // 8, WIDTH // 8)
@@ -140,7 +156,7 @@ def check_kernels(torch, prof, dec, rng, inputs):
     # masks), a 384-row table with over 128 rows opened
     larger = {"greedy_match": [
         (f"K={k}", (torch.from_numpy(inputs.match_scores(rng, BATCH, k))
-                    .to(dev),)) for k in (96, 128)]}
+                    .to(dev),)) for k in (96, 128, match.MAX_K)]}
     big = inputs.merge_inputs(rng, BATCH, 128, 40)
     larger["merge_people"] = [("cap=384", tuple(
         torch.from_numpy(big[name]).to(dev) for name in (
@@ -172,9 +188,19 @@ def check_kernels(torch, prof, dec, rng, inputs):
               f"kernel alone {own:.4f} ms by torch.profiler (all its "
               f"wrapper's device work {every:.4f} ms), plain twin "
               f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({nbytes} bytes)")
-        return got, {"shape": label, "max_abs_err": err, "ms": ms,
-                     "kernel_device_ms": own, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": bound_by}
+        rec = {"shape": label, "max_abs_err": err, "ms": ms,
+               "kernel_device_ms": own, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": bound_by}
+        if name == "greedy_match":
+            k = got[3].shape[-1]
+            taken = got[3].reshape(-1, k).sum(1)
+            rounds = int((taken + (taken < k)).max())
+            rec["rounds"] = rounds
+            rec["latency_bound_ms"] = (rounds * 5 * shfl_cycles / ghz * 1e-6
+                                       + bound)
+            print(f"kernel {name} {label}: {rounds} rounds, latency bound "
+                  f"{rec['latency_bound_ms']:.6f} ms")
+        return got, rec
 
     results = []
     for name, kernel, plain, kargs, source, replaces in records:
@@ -200,16 +226,24 @@ def check_kernels(torch, prof, dec, rng, inputs):
 def check_conv_kernels(torch, prof, inputs):
     """Phase 4: the VGG-prefix conv kernels against their twins (TF32
     off): float32 at the CPU tests' small shapes (within 1e-4 of
-    max|twin|), bf16 at ``inputs.SM90_CHAINS`` on the sm90 route and at
-    the prefix path's shapes (within 0.02), each call raising the
-    kernels' counts by exactly what its route launches; twin, kernel and
-    cuDNN (``library_ms``) timed in turns. Returns one record per kernel,
-    its times summed over the calls that launched it alone at the path's
-    shapes (``conv3x3_sm90``: each layer of blocks 2-3), the seeded model
-    and frames."""
+    max|twin|), bf16 at those narrow shapes, at ``inputs.SM90_CHAINS`` on
+    the sm90 route and at the prefix path's shapes (within 0.02), float32
+    blocks 1-3 at the prefix path's shapes (within 1e-4), each call
+    raising the kernels' counts by exactly what its route launches; twin,
+    kernel and cuDNN (``library_ms``) timed in turns. Returns one record
+    per kernel, its times summed over the calls that launched it alone at
+    the path's shapes (``conv3x3_sm90``: each layer of blocks 2-3;
+    ``conv3x3_f32``: float32 blocks 1-3; ``conv_chain``: the narrow bf16
+    block 1), the seeded model and frames."""
     from torch_ekpose_tpu_torch.models.vgg import VGG19Backbone
     from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
 
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"TF32: torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     rng = np.random.default_rng(SEED)
 
     def t(*shape):
@@ -224,18 +258,21 @@ def check_conv_kernels(torch, prof, inputs):
     chain = (cc.conv_chain, cc.conv_chain_torch)
     conv1 = (block1.conv1_fused, block1.conv1_fused_torch)
     pooled = (block1.block1_fused, block1.block1_fused_torch)
-    fused = {"conv_chain": 1}
-    small = [
-        ("conv_chain", "36x24 3-16-16 pool", *chain,
-         (t(2, 36, 24, 3), params([(3, 16), (16, 16)])), {"pool": True},
-         fused),
-        ("conv_chain", "16x16 bias-50 border", *chain,
-         (t(2, 16, 16, 4), params([(4, 8), (8, 8)], 50.0)), {"pool": False},
-         fused),
-        ("conv_chain", "16x16 three deep", *chain,
-         (t(2, 16, 16, 8), params([(8, 8)] * 3)), {"pool": False}, fused),
-    ]
-    # block 1: float32 runs on conv_chain's fused kernel, bf16 on
+    small = []
+    # narrow chains: float32 one conv3x3_f32 launch a layer, bf16 one
+    # fused conv_chain.cu launch
+    for label, x, ps, pool in (
+            ("36x24 3-16-16 pool", t(2, 36, 24, 3),
+             params([(3, 16), (16, 16)]), True),
+            ("16x16 bias-50 border", t(2, 16, 16, 4),
+             params([(4, 8), (8, 8)], 50.0), False),
+            ("16x16 three deep", t(2, 16, 16, 8), params([(8, 8)] * 3),
+             False)):
+        small += [("conv3x3_f32", label, *chain, (x, ps), {"pool": pool},
+                   {"conv3x3_f32": len(ps)}),
+                  ("conv_chain", label, *chain, (x.to(torch.bfloat16), ps),
+                   {"pool": pool}, {"conv_chain": 1})]
+    # block 1: float32 runs one conv3x3_f32 launch a layer, bf16 on
     # block1_sm90 (ragged tiles; a relu(50) leaking past the border)
     for shape, bias in (((1, 16, 24), None), ((1, 38, 70), None),
                         ((2, 38, 70), 50.0)):
@@ -247,9 +284,9 @@ def check_conv_kernels(torch, prof, inputs):
             f32 = xd.dtype == torch.float32
             small += [
                 ("conv1_fused", label, *conv1, (xd, w1, b1), {},
-                 fused if f32 else {"conv1_fused": 1}),
+                 {"conv3x3_f32": 1} if f32 else {"conv1_fused": 1}),
                 ("block1_fused", label, *pooled, (xd, w1, b1, w2, b2), {},
-                 fused if f32 else {"block1_fused": 1})]
+                 {"conv3x3_f32": 2} if f32 else {"block1_fused": 1})]
     for label, (shape, layers, pool, bias) in inputs.SM90_CHAINS.items():
         x, ps = inputs.chain_arrays(rng, shape, layers, bias)
         small.append((
@@ -279,7 +316,8 @@ def check_conv_kernels(torch, prof, inputs):
         calls = []
         device = {}
         for case in (prof.prefix_cases(model, frames)
-                     + prof.sm90_layer_cases(model, frames)):
+                     + prof.sm90_layer_cases(model, frames)
+                     + prof.narrow_cases(frames)):
             calls.append(prof.measure_case(case, reps=5))
             prof.print_case(calls[-1])
             if case["name"] in ("conv1_fused", "block1_fused"):
@@ -293,6 +331,7 @@ def check_conv_kernels(torch, prof, inputs):
 
     replaces = {"conv_chain": "torch_ekpose_tpu/ops/pallas_conv.py:163",
                 "conv3x3_sm90": "torch_ekpose_tpu/ops/pallas_conv.py:163",
+                "conv3x3_f32": "torch_ekpose_tpu/ops/pallas_conv.py:163",
                 "conv1_fused": "scripts/profile_block1.py:68",
                 "block1_fused": "scripts/profile_block1.py:149"}
     keys = ("shape", "launched", "source", "input", "ms", "plain_ms",
@@ -330,10 +369,11 @@ def check_prefix_path(torch, prof, kernels, model, frames):
     through the conv kernels, once per block-1 route in bf16 and once on
     the ``conv_chain`` route in float32, with every conv kernel's launch
     count set to 0 just before and read just after; each bf16 route must
-    launch exactly ``prof.PREFIX_LAUNCHES`` (no fused ``conv_chain``
-    launch) and the float32 pass ``prof.PREFIX_LAUNCHES_F32``; each is
-    held against ``backbone[:19]`` on cuDNN; then the bf16 routes are
-    timed."""
+    launch exactly ``prof.PREFIX_LAUNCHES`` and the float32 pass
+    ``prof.PREFIX_LAUNCHES_F32`` (``conv_chain.cu``'s fused kernel, which
+    only narrow bf16 chains take, never); each is held against
+    ``backbone[:19]`` on cuDNN; then the bf16 routes are timed, and the
+    float32 pass against cuDNN's float32."""
     for rec in kernels:
         rec["wrapper"].launches = 0
     with torch.no_grad():
@@ -344,17 +384,23 @@ def check_prefix_path(torch, prof, kernels, model, frames):
     print(f"prefix path: routes {sorted(outs)}, output "
           f"{tuple(next(iter(outs.values())).shape)}, kernel launches "
           f"{launches}, per bf16 route {per_route}, float32 conv_chain "
-          f"route {f32}")
-    if min(launches.values()) < 1:
-        raise AssertionError("the prefix path did not run every conv kernel")
+          f"route {f32}, on {prof.card_line()}")
+    if launches.pop("conv_chain") != 0 or min(launches.values()) < 1:
+        raise AssertionError("the prefix path did not run every conv kernel "
+                             "of its routes, or ran conv_chain.cu")
     for rec in kernels:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = launches.get(rec["name"], 0)
     print(f"prefix path vs backbone[:19]: "
           f"{prof.check_prefix(model, frames, outs)}")
     route_ms, cudnn_ms = prof.time_prefix(model, frames, reps=5)
     print(f"prefix path, batch {BATCH} at {HEIGHT}x{WIDTH} bf16, by block-1 "
           f"route: {route_ms} ms; cuDNN backbone[:19] {cudnn_ms:.4f} ms "
           f"(means of 5, in turns), on {prof.card_line()}")
+    f32_ms, cudnn_f32_ms = prof.time_prefix_f32(model, frames, reps=5)
+    print(f"prefix path, batch {BATCH} at {HEIGHT}x{WIDTH} float32 (TF32 "
+          f"off), conv_chain route on conv3x3_f32: {f32_ms:.4f} ms; cuDNN "
+          f"float32 backbone[:19] {cudnn_f32_ms:.4f} ms (means of 5, in "
+          f"turns), on {prof.card_line()}")
 
 
 def check_golden(torch, inputs):
@@ -588,6 +634,7 @@ def main() -> int:
         if "ptxas" in line or "spill" in line:
             print(line)
     for kernel, source in (("conv3x3_kernel", "conv3x3_sm90.cu"),
+                           ("conv3x3_f32_kernel", "conv3x3_f32.cu"),
                            ("block1_kernel", "block1_sm90.cu")):
         if kernel not in report:
             raise AssertionError(f"no ptxas report for {source}")

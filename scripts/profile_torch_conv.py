@@ -8,22 +8,26 @@ and ``scripts/profile_block1.py``. With the seeded weights of the port's
 ``VGG19Backbone`` and seeded bf16 frames it runs vgg2016's blocks 1, 2 and
 3 through ``conv_chain`` (each block's input is the twin's output of the
 block before; block 1 must launch ``block1_fused`` once, blocks 2 and 3
-``conv3x3_sm90`` once per layer, as the wrappers' counts show), block 1
-in float32 through ``conv_chain`` (its fused kernel), block 1 through
-``conv1_fused`` and ``block1_fused``, and conv1_2 + pool and each layer
-of blocks 2 and 3 through ``conv3x3_sm90`` alone (each layer's input the
-twin's output of the layer before). For each it prints the max error
-relative to max|twin| against the plain twin (float32 sums, TF32 off),
-the kernel's, the twin's and cuDNN's time (the same convs + bias + ReLU
-+ pool in the input's dtype, ``channels_last``, the library yardstick),
-the kernel's TFLOP/s and share of the dtype's peak, and its bound (from
-the shapes). Times are means of ``--reps`` calls by CUDA events, in
-turns: twin, kernel, cuDNN, cuDNN, kernel, twin.
+``conv3x3_sm90`` once per layer, as the wrappers' counts show), blocks
+1, 2 and 3 in float32 through ``conv_chain`` (one ``conv3x3_f32`` launch
+per layer, each block's input the float32 twin's output of the block
+before), block 1 through ``conv1_fused`` and ``block1_fused``, conv1_2 +
+pool and each layer of blocks 2 and 3 through ``conv3x3_sm90`` alone
+(each layer's input the twin's output of the layer before), and a narrow
+bf16 chain (block 1 at 32 channels, seeded weights) that only
+``conv_chain.cu`` takes. For each it prints the max error relative to
+max|twin| against the plain twin (float32 sums, TF32 off), the kernel's,
+the twin's and cuDNN's time (the same convs + bias + ReLU + pool in the
+input's dtype, ``channels_last``, TF32 off, the library yardstick), the
+kernel's TFLOP/s and share of the dtype's peak, and its bound (from the
+shapes). Times are means of ``--reps`` calls by CUDA events, in turns:
+twin, kernel, cuDNN, cuDNN, kernel, twin.
 
 Then the prefix path: ``prefix_forward`` with each block-1 route in bf16
 and the ``conv_chain`` route in float32, against ``backbone[:19]`` on
-cuDNN in bf16 ``channels_last`` and in float32 with TF32 off, and each
-bf16 route timed in turns with cuDNN's.
+cuDNN in bf16 ``channels_last`` and in float32 with TF32 off, each bf16
+route timed in turns with cuDNN's, and the float32 pass in turns with
+cuDNN's float32 ``backbone[:19]``.
 
 ``chip_smoke.py`` loads this file by path and uses its helpers. It runs
 only on a card.
@@ -138,6 +142,7 @@ def counted() -> dict:
 
     return {"conv_chain": (cc.conv_chain, "csrc/conv_chain.cu"),
             "conv3x3_sm90": (cc.conv3x3_sm90, "csrc/conv3x3_sm90.cu"),
+            "conv3x3_f32": (cc.conv3x3_f32, "csrc/conv3x3_f32.cu"),
             "conv1_fused": (block1.conv1_fused, "csrc/block1_sm90.cu"),
             "block1_fused": (block1.block1_fused, "csrc/block1_sm90.cu")}
 
@@ -162,30 +167,34 @@ def _sm90_layer_twin(x, w, b, pool=False):
 
 def prefix_cases(model, x1):
     """The prefix path's kernel calls at the shapes it gives them: blocks
-    1-3 through ``conv_chain`` (blocks 2 and 3 on the twin's output of the
-    block before), block 1 in float32 through ``conv_chain``, block 1
-    through ``conv1_fused`` and ``block1_fused``; each with the launches
-    it must make (bf16 block 1 one ``block1_fused``, blocks 2 and 3 one
-    ``conv3x3_sm90`` per layer, float32 block 1 one fused
-    ``ekp_conv_chain``)."""
+    1-3 through ``conv_chain`` in bf16 (blocks 2 and 3 on the twin's output
+    of the block before) and in float32 (on the float32 twin's outputs),
+    block 1 through ``conv1_fused`` and ``block1_fused``; each with the
+    launches it must make (bf16 block 1 one ``block1_fused``, bf16 blocks 2
+    and 3 one ``conv3x3_sm90`` per layer, float32 one ``conv3x3_f32`` per
+    layer)."""
     from torch_ekpose_tpu_torch.models.vgg import chain_params
     from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
 
     p = [chain_params(model, blk) for blk in (1, 2, 3)]
-    with no_tf32():
-        x2 = cc.conv_chain_torch(x1, p[0], True)
-        x3 = cc.conv_chain_torch(x2, p[1], True)
     cases = []
-    for i, x in enumerate((x1, x2, x3)):
-        cases.append(dict(name="conv_chain", label=f"block{i + 1}",
-                          kernel=cc.conv_chain, twin=cc.conv_chain_torch,
-                          args=(x, p[i]), kwargs={"pool": True}, params=p[i],
-                          pool=True, launches={"block1_fused": 1} if i == 0
-                          else {"conv3x3_sm90": len(p[i])}))
-    cases.append(dict(name="conv_chain", label="block1 float32",
-                      kernel=cc.conv_chain, twin=cc.conv_chain_torch,
-                      args=(x1.float(), p[0]), kwargs={"pool": True},
-                      params=p[0], pool=True, launches={"conv_chain": 1}))
+    for dtype in (x1.dtype, "float32"):
+        xs = [x1 if dtype != "float32" else x1.float()]
+        with no_tf32():
+            for i in (0, 1):
+                xs.append(cc.conv_chain_torch(xs[-1], p[i], True))
+        for i, x in enumerate(xs):
+            if dtype == "float32":
+                name, label = "conv3x3_f32", f"block{i + 1} float32"
+                launches = {"conv3x3_f32": len(p[i])}
+            else:
+                name, label = "conv_chain", f"block{i + 1}"
+                launches = ({"block1_fused": 1} if i == 0
+                            else {"conv3x3_sm90": len(p[i])})
+            cases.append(dict(name=name, label=label, kernel=cc.conv_chain,
+                              twin=cc.conv_chain_torch, args=(x, p[i]),
+                              kwargs={"pool": True}, params=p[i], pool=True,
+                              launches=launches))
     cases.append(dict(name="conv1_fused", label="conv1_1",
                       kernel=block1.conv1_fused, twin=block1.conv1_fused_torch,
                       args=(x1, *p[0][0]), kwargs={}, params=p[0][:1],
@@ -196,6 +205,25 @@ def prefix_cases(model, x1):
                       args=(x1, *p[0][0], *p[0][1]), kwargs={}, params=p[0],
                       pool=True, launches={"block1_fused": 1}))
     return cases
+
+
+def narrow_cases(x1, seed: int = 0):
+    """A bf16 chain that only ``conv_chain.cu`` takes, on the prefix's
+    frames: block 1 at 32 channels (``[3, 32, 32]`` + pool), seeded
+    weights scaled by sqrt(2 / fan-in)."""
+    import torch
+
+    from torch_ekpose_tpu_torch.ops import conv_chain as cc
+
+    gen = torch.Generator(device=x1.device).manual_seed(seed)
+    params = [(torch.randn((3, 3, ci, co), generator=gen, device=x1.device)
+               * (2 / (9 * ci)) ** 0.5,
+               torch.randn((co,), generator=gen, device=x1.device) * 0.1)
+              for ci, co in ((3, 32), (32, 32))]
+    return [dict(name="conv_chain", label="block1 narrow 3-32-32",
+                 kernel=cc.conv_chain, twin=cc.conv_chain_torch,
+                 args=(x1, params), kwargs={"pool": True}, params=params,
+                 pool=True, launches={"conv_chain": 1})]
 
 
 def sm90_layer_cases(model, x1):
@@ -310,9 +338,10 @@ PREFIX_LAUNCHES = {
     "block1_fused": {"block1_fused": 1, "conv3x3_sm90": 6},
     "conv1_fused": {"conv1_fused": 1, "conv3x3_sm90": 7},
 }
-#: the same for a float32 pass of the ``conv_chain`` route: each block one
-#: fused ``ekp_conv_chain`` launch
-PREFIX_LAUNCHES_F32 = {"conv_chain": 3}
+#: the same for a float32 pass of the ``conv_chain`` route: one
+#: ``conv3x3_f32`` launch per layer (2 + 2 + 4), the fused ``conv_chain``
+#: kernel none
+PREFIX_LAUNCHES_F32 = {"conv3x3_f32": 8}
 
 
 def drive_prefix(model, x) -> tuple:
@@ -362,6 +391,20 @@ def drive_prefix_f32(model, x) -> dict:
         raise AssertionError(f"float32 prefix: {tuple(out.shape)}, rel {rel}")
     return {"launched": launched, "rel_err_vs_cudnn_f32": rel,
             "ms": start.elapsed_time(end)}
+
+
+def time_prefix_f32(model, x, reps: int) -> tuple:
+    """(kernels ms, cuDNN ms): the float32 pass of the ``conv_chain``
+    route and cuDNN's float32 ``backbone[:19]`` (TF32 off), in turns."""
+    import torch
+
+    from torch_ekpose_tpu_torch.models.vgg import PREFIX_END, prefix_forward
+
+    x = x.float()
+    ref = model.backbone[:PREFIX_END]
+    with torch.no_grad(), no_tf32():
+        return tuple(turns([lambda: prefix_forward(model, x, "conv_chain"),
+                            lambda: ref(x.permute(0, 3, 1, 2))], reps))
 
 
 def cudnn_prefix(model):
@@ -469,6 +512,8 @@ def main(argv=None) -> int:
         return 2
     card = card_line()
     print(card, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     torch.manual_seed(args.seed)
     model = VGG19Backbone(device="cuda")
@@ -480,15 +525,17 @@ def main(argv=None) -> int:
                    for case in prefix_cases(model, x)]
         for r in results:
             print_case(r)
-        for case in sm90_layer_cases(model, x):
+        for case in sm90_layer_cases(model, x) + narrow_cases(x):
             print_case(measure_case(case, args.reps))
         report = check_prefix(model, x, drive_prefix(model, x)[0])
         print(f"prefix path vs backbone[:19]: {report}")
         print(f"float32 prefix path: {drive_prefix_f32(model, x)}")
         route_ms, cudnn_ms = time_prefix(model, x, args.reps)
+        f32_ms, cudnn_f32_ms = time_prefix_f32(model, x, args.reps)
     print(f"prefix path (blocks 1-3), batch {args.batch} at {args.height}x"
           f"{args.width} bf16, by block-1 route: {route_ms} ms; cuDNN "
-          f"{cudnn_ms:.4f} ms, on {card}")
+          f"{cudnn_ms:.4f} ms; float32 (conv3x3_f32) {f32_ms:.4f} ms, cuDNN "
+          f"float32 {cudnn_f32_ms:.4f} ms, on {card}")
     return 0
 
 

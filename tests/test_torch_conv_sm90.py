@@ -104,8 +104,8 @@ def test_kernel_walk_equals_twin(shape, chain, pool, bias):
         ([128, 256, 256, 256, 256], torch.bfloat16, "sm90"),     # block 3
         ([3, 64, 64], torch.bfloat16, "fused"),       # block 1, no pool
         ([64, 64], torch.bfloat16, "sm90"),           # block 1 after conv1_1
-        ([64, 128, 128], torch.float32, "fused"),
-        ([128, 256, 256, 256, 256], torch.float32, "fused"),
+        ([64, 128, 128], torch.float32, "f32"),
+        ([128, 256, 256, 256, 256], torch.float32, "f32"),
         ([3, 16, 16], torch.bfloat16, "fused"),       # the CHAINS test shapes
         ([16, 24, 32], torch.bfloat16, "fused"),
         ([8, 8, 8, 8], torch.bfloat16, "fused"),
@@ -254,8 +254,8 @@ def test_bn64_kernel_walk_equals_twin(shape, co, pool, bias):
         ([128, 256, 256, 256, 256], torch.bfloat16, True, "sm90",
          [128] * 4),
         ([128, 64, 192], torch.bfloat16, False, "sm90", [64, 64]),
-        ([3, 64, 64], torch.float32, True, "fused", None),
-        ([64, 64], torch.float32, True, "fused", None),
+        ([3, 64, 64], torch.float32, True, "f32", None),
+        ([64, 64], torch.float32, True, "f32", None),
         ([3, 32, 32], torch.bfloat16, True, "fused", None),      # narrow
         ([3, 64, 128], torch.bfloat16, True, "fused", None),     # c2 != 64
         ([64, 96], torch.bfloat16, True, "fused", None),         # 96 % 64
@@ -268,7 +268,8 @@ def test_plan_chain_routes_block1_and_bn64(chans, dtype, pool, route, tiles):
     """The routing rule: the pooled bf16 [3, 64, 64] chain goes to
     ``block1_sm90``; a bf16 chain of ``ci % 64 == 0`` and ``co % 64 == 0``
     layers to ``conv3x3_sm90``, at N tile 128 where ``co % 128 == 0`` and
-    64 otherwise; float32 and narrow chains to the fused kernel."""
+    64 otherwise; float32 chains to ``conv3x3_f32``, one launch a layer;
+    narrow bf16 chains to the fused kernel."""
     assert cc.plan_chain(chans, dtype, pool) == route
     if tiles is not None:
         assert [cc.sm90_tile_n(co) for co in chans[1:]] == tiles

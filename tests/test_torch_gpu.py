@@ -4,8 +4,8 @@ JAX package's golden file, and the VGG-prefix conv kernels against their
 twins (float32 within 1e-4 of max|twin| with TF32 off: the sums run in
 another order; bf16 within 0.02 of max|twin|: one sum-order difference
 can move a value across a bf16 rounding boundary, and the next layer
-carries it on), on both of ``conv_chain``'s routes (``-k sm90`` picks the
-TMA + wgmma one).
+carries it on), on each of ``conv_chain``'s routes (``-k sm90`` picks the
+TMA + wgmma one, ``-k f32`` the float32 one).
 
 Marked ``gpu``; they skip without a card (the decision is made in a
 fixture, so every xdist worker collects the same tests). The file
@@ -69,8 +69,10 @@ def test_nms_kernel_equals_twin(cuda, seed):
     assert out.shape == (B, 18, 46, 54) and torch.isinf(out).any()
 
 
-@pytest.mark.parametrize("k", [8, 32, 64, 96, 128, match.MAX_K])
+@pytest.mark.parametrize("k", [8, 32, 64, 96, 128, match.MAX_K, 160, 192, 224])
 def test_match_kernel_equals_twin(cuda, k):
+    """Every ``greedy_match_kernel<R>`` instance, R = ceil(K / 32) = 1 ... 8,
+    bit for bit against the twin."""
     scores = torch.from_numpy(inputs.match_scores(
         np.random.default_rng(k), B, k)).to(cuda)
     _, _, _, valid = _kernel_vs_twin(match.greedy_match,
@@ -211,18 +213,52 @@ CHAINS = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w,chain,pool,bias", CHAINS)
 def test_conv_chain_kernel_matches_twin(cuda, dtype, h, w, chain, pool, bias):
+    """float32 runs one ``conv3x3_f32`` launch a layer; bf16 (narrow
+    chains) one fused ``conv_chain.cu`` launch."""
     rng = np.random.default_rng(h * w)
     x = torch.from_numpy(rng.standard_normal((2, h, w, chain[0][0]))).to(
         cuda, dtype)
+    f32 = dtype == torch.float32
     _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x,
                   _chain_params(rng, chain, cuda, bias), pool=pool,
-                  launches=_routes(fused=1, sm90=0))
+                  launches=_routes(fused=int(not f32), sm90=0,
+                                   f32=len(chain) if f32 else 0))
 
 
-def _routes(fused, sm90, block1_sm90=0):
+def _routes(fused, sm90, block1_sm90=0, f32=0):
     """``_conv_vs_twin``'s ``launches`` for a ``conv_chain`` call."""
     return {cc.conv_chain: fused, cc.conv3x3_sm90: sm90,
-            block1.block1_fused: block1_sm90}
+            block1.block1_fused: block1_sm90, cc.conv3x3_f32: f32}
+
+
+@pytest.mark.parametrize("shape,ci,co,pool", [
+    ((2, 19, 37), 3, 64, False),       # conv1_1: 3 of 8 chunk channels
+    ((1, 12, 22), 5, 7, True),         # co % 4 != 0: scalar stores
+    ((2, 10, 18), 64, 130, True),      # two N tiles of 128, the last padded
+    ((1, 9, 33), 17, 96, False),       # three K chunks, one ragged
+])
+def test_conv3x3_f32_matches_twin_at_odd_widths(cuda, shape, ci, co, pool):
+    """One ``conv3x3_f32`` launch on widths the prefix never gives it:
+    ci and co padded inside the kernel, ragged tiles, both N tiles."""
+    rng = np.random.default_rng(ci * co)
+    x = torch.from_numpy(rng.standard_normal(shape + (ci,))).to(
+        cuda, torch.float32)
+    (w, b), = _chain_params(rng, [(ci, co)], cuda)
+    _conv_vs_twin(cc.conv3x3_f32, lambda x, w, b, pool: cc.conv_chain_torch(
+        x, [(w, b)], pool), x, w, b, pool=pool)
+
+
+def test_f32_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 8, 16, 8), device=cuda)
+    (w, b), = _chain_params(np.random.default_rng(3), [(8, 16)], cuda)
+    before = cc.conv3x3_f32.launches
+    with pytest.raises(ValueError, match="expected float32"):
+        cc.conv3x3_f32(x.to(torch.bfloat16), w, b)
+    with pytest.raises(ValueError, match="layer 1"):
+        cc.conv3x3_f32(x[..., :4].contiguous(), w, b)
+    with pytest.raises(ValueError, match="even H and W"):
+        cc.conv3x3_f32(x[:, :7], w, b, pool=True)
+    assert cc.conv3x3_f32.launches == before
 
 
 @pytest.mark.parametrize("name", list(inputs.SM90_CHAINS))
@@ -254,30 +290,30 @@ def test_sm90_kernel_refuses_what_it_does_not_take(cuda):
     assert cc.conv3x3_sm90.launches == before
 
 
-def _block1_counts(conv1=0, pooled=0, chain=0):
+def _block1_counts(conv1=0, pooled=0, chain=0, f32=0):
     """``_conv_vs_twin``'s ``launches`` for a block-1 call: every counted
     conv wrapper, with what it must add (``conv1_fused``,
-    ``block1_fused``, the fused ``conv_chain`` kernel)."""
+    ``block1_fused``, the fused ``conv_chain`` kernel, ``conv3x3_f32``)."""
     return {block1.conv1_fused: conv1, block1.block1_fused: pooled,
-            cc.conv_chain: chain, cc.conv3x3_sm90: 0}
+            cc.conv_chain: chain, cc.conv3x3_sm90: 0, cc.conv3x3_f32: f32}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 16, 24), (1, 38, 70)])
 def test_block1_kernels_match_twins(cuda, dtype, shape):
     """bf16 launches ``ekp_block1_sm90`` in each mode; float32 runs the
-    same function on ``conv_chain``'s fused kernel, the block-1 counts
-    unchanged."""
+    same function as one ``conv3x3_f32`` launch a layer, the block-1
+    counts unchanged."""
     rng = np.random.default_rng(shape[1])
     x = torch.from_numpy(rng.standard_normal(shape + (3,))).to(cuda, dtype)
     (w1, b1), (w2, b2) = _chain_params(rng, [(3, 64), (64, 64)], cuda)
     sm90 = dtype == torch.bfloat16
     _conv_vs_twin(block1.conv1_fused, block1.conv1_fused_torch, x, w1, b1,
                   launches=_block1_counts(conv1=int(sm90),
-                                          chain=int(not sm90)))
+                                          f32=int(not sm90)))
     _conv_vs_twin(block1.block1_fused, block1.block1_fused_torch, x, w1, b1,
                   w2, b2, launches=_block1_counts(pooled=int(sm90),
-                                                  chain=int(not sm90)))
+                                                  f32=2 * int(not sm90)))
 
 
 @pytest.mark.parametrize("shape,bias", [
@@ -314,7 +350,7 @@ def test_block1_refusals_launch_nothing(cuda):
     (w1, b1), (w2, b2) = _chain_params(rng, [(3, 64), (64, 64)], cuda)
     x = torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.bfloat16)
     counted = (block1.conv1_fused, block1.block1_fused, cc.conv_chain,
-               cc.conv3x3_sm90)
+               cc.conv3x3_sm90, cc.conv3x3_f32)
     before = [f.launches for f in counted]
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         block1.block1_fused(x.half(), w1, b1, w2, b2)
@@ -358,6 +394,23 @@ def test_conv_chain_at_vgg_prefix_shapes(cuda, block):
     _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x, params, pool=True,
                   launches=_routes(fused=0, sm90=0, block1_sm90=1)
                   if block == 1 else _routes(fused=0, sm90=len(params)))
+
+
+@pytest.mark.parametrize("block", [1, 2, 3])
+def test_conv_chain_f32_at_vgg_prefix_shapes(cuda, block):
+    """float32, batch 1, the prefix's full 368x432 widths, seeded weights:
+    one ``conv3x3_f32`` launch a layer (block 1: conv1_1 from 3 channels
+    and conv1_2 at N tile 64; blocks 2-3 at N tile 128), within 1e-4 of
+    max|twin| with TF32 off, and no other conv kernel."""
+    torch.manual_seed(block)
+    model = VGG19Backbone(device=cuda)
+    h, w, c = {1: (368, 432, 3), 2: (184, 216, 64), 3: (92, 108, 128)}[block]
+    x = torch.rand((1, h, w, c), device=cuda)
+    params = chain_params(model, block)
+    assert cc.plan_chain([c] + [p[0].shape[3] for p in params], x.dtype,
+                         True) == "f32"
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch, x, params, pool=True,
+                  launches=_routes(fused=0, sm90=0, f32=len(params)))
 
 
 def test_conv1_2_at_vgg_prefix_shape_takes_bn64(cuda):

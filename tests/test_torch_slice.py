@@ -161,7 +161,9 @@ def test_port_imports_without_jax():
                                   "tests/torch_port_inputs.py",
                                   "tests/test_torch_gpu.py",
                                   "scripts/profile_torch_conv.py",
-                                  "scripts/profile_torch_decode.py"])
+                                  "scripts/profile_torch_decode.py",
+                                  "scripts/profile_torch_kernels.py",
+                                  "scripts/profile_torch_match.py"])
 def test_card_checks_name_only_the_port(path):
     """The card-side scripts, tests and the inputs they load import
     neither JAX nor the JAX package: the card has no JAX."""

@@ -1,4 +1,4 @@
-// Pieces of the fused 3x3 conv chain kernel (conv_chain.cu).
+// Pieces of the fused bf16 3x3 conv chain kernel (conv_chain.cu).
 //
 // A fused kernel keeps one output tile's chain of intermediates in shared
 // memory. Each intermediate is a region of pixels, row-major, and each
@@ -6,18 +6,17 @@
 //
 //   buf[(r * cols + c) * ps + ch],  ps = round_up(channels, 16) + 8
 //
-// The 8 extra channels (16 bytes in bf16) put the rows of one ldmatrix
-// 8x8 load in 8 different bank groups, so the loads are conflict-free.
+// The 8 extra channels (16 bytes) put the rows of one ldmatrix 8x8 load
+// in 8 different bank groups, so the loads are conflict-free.
 //
-// conv_layer() is one layer: an implicit GEMM with the layer's output
+// conv_layer() is one 3x3 layer: an implicit GEMM with the layer's output
 // pixels as M, its (padded) output channels as N and taps x padded input
-// channels as K. For bf16 it runs on the tensor cores with
-// mma.sync.m16n8k16 (bf16 operands, f32 sums): A comes from the input
-// region in shared memory by ldmatrix, one row address per pixel, so the
-// 3x3 window needs no im2col copy; B comes from device memory (L2) in
-// fragment order, packed by the Python wrapper. For float32 the same
-// warp tile is summed with FMAs in the same accumulator layout, so the
-// epilogue is shared. Each warp owns 32 pixels x 64 channels at a time.
+// channels as K, on the tensor cores with mma.sync.m16n8k16 (bf16
+// operands, f32 sums): A comes from the input region in shared memory by
+// ldmatrix, one row address per pixel, so the 3x3 window needs no im2col
+// copy; B comes from device memory (L2) in fragment order, packed by the
+// Python wrapper. Each warp owns 32 pixels x 64 channels at a time.
+// bf16 only: float32 chains run one conv3x3_f32.cu launch per layer.
 //
 // Plain C++ for nvcc; no PyTorch headers.
 
@@ -25,8 +24,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace ekp_conv {
 
@@ -45,23 +42,7 @@ __host__ __device__ inline int pad_ch(int c) { return round_up(c, 16); }
 // pixel stride in elements of a shared-memory region
 __host__ __device__ inline int pix_stride(int c) { return pad_ch(c) + 8; }
 
-template <typename T>
-__device__ inline float to_f(T v);
-template <>
-__device__ inline float to_f<float>(float v) { return v; }
-template <>
-__device__ inline float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ inline T from_f(float v);
-template <>
-__device__ inline float from_f<float>(float v) { return v; }
-template <>
-__device__ inline __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using bf16 = __nv_bfloat16;
 
 __device__ inline void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
   const unsigned addr =
@@ -82,25 +63,25 @@ __device__ inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One 3x3 (TAPS = 9) or 1x1-on-patches (TAPS = 1) conv layer + bias +
-// ReLU, rounded to T, from one shared-memory region into another.
+// One 3x3 conv layer + bias + ReLU, rounded to bf16, from one
+// shared-memory region into another.
 //
-//   in:   input region, (out_rows + 2) x (out_cols + 2) pixels for
-//         TAPS = 9, out_rows x out_cols for TAPS = 1; stride in_ps
+//   in:   input region, (out_rows + 2) x (out_cols + 2) pixels, stride
+//         in_ps
 //   out:  out_rows x out_cols pixels, stride out_ps, np channels written
-//   w:    packed weights, taps x (kc * 16) x np; fragment order for bf16
-//         ([tap][k chunk][n tile][lane][4]), plain [tap][k][n] for float
+//   w:    packed weights, 9 x (kc * 16) x np in fragment order
+//         ([tap][k chunk][n tile][lane][4])
 //   bias: np floats (zero beyond the real channels)
 //   mask: zero every output pixel outside the image; (oy, ox) is the
 //         image position of the region's pixel (0, 0)
-template <typename T, int TAPS>
-__device__ void conv_layer(const T* in, int in_ps, T* out, int out_ps,
-                           int out_rows, int out_cols, const T* __restrict__ w,
+__device__ inline void conv_layer(const bf16* in, int in_ps, bf16* out, int out_ps,
+                           int out_rows, int out_cols,
+                           const bf16* __restrict__ w,
                            const float* __restrict__ bias, int kc, int np,
                            bool mask, int oy, int ox, int height, int width) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int in_cols = TAPS == 9 ? out_cols + 2 : out_cols;
+  const int in_cols = out_cols + 2;
   const int m_total = out_rows * out_cols;
   const int m_groups = (m_total + kWarpM - 1) / kWarpM;
   const int n_groups = (np + kWarpN - 1) / kWarpN;
@@ -118,78 +99,38 @@ __device__ void conv_layer(const T* in, int in_ps, T* out, int out_ps,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      // ldmatrix rows: lane l gives pixel row l % 16 at k offset (l/16)*8
-      int a_pix[2];
+    // ldmatrix rows: lane l gives pixel row l % 16 at k offset (l/16)*8
+    int a_pix[2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        int m = m0 + mt * 16 + (lane & 15);
-        if (m >= m_total) m = 0;  // padding rows: read pixel 0, never stored
-        a_pix[mt] = (m / out_cols) * in_cols + (m % out_cols);
-      }
-      const int koff = (lane >> 4) * 8;
-      const uint2* wf = reinterpret_cast<const uint2*>(w);
-      for (int tap = 0; tap < TAPS; ++tap) {
-        const int shift = (tap / 3) * in_cols + (tap % 3);
-        for (int kk = 0; kk < kc; ++kk) {
-          unsigned a[2][4];
+    for (int mt = 0; mt < 2; ++mt) {
+      int m = m0 + mt * 16 + (lane & 15);
+      if (m >= m_total) m = 0;  // padding rows: read pixel 0, never stored
+      a_pix[mt] = (m / out_cols) * in_cols + (m % out_cols);
+    }
+    const int koff = (lane >> 4) * 8;
+    const uint2* wf = reinterpret_cast<const uint2*>(w);
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * in_cols + (tap % 3);
+      for (int kk = 0; kk < kc; ++kk) {
+        unsigned a[2][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldmatrix_x4(a[mt],
-                        in + (a_pix[mt] + shift) * in_ps + kk * 16 + koff);
-          const uint2* wk =
-              wf + ((tap * kc + kk) * n_tiles_all + n0 / 8) * 32 + lane;
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(a[mt],
+                      in + (a_pix[mt] + shift) * in_ps + kk * 16 + koff);
+        const uint2* wk =
+            wf + ((tap * kc + kk) * n_tiles_all + n0 / 8) * 32 + lane;
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            if (nt < n_tiles) {
-              const uint2 b = __ldg(wk + nt * 32);
-              mma_bf16(acc[0][nt], a[0], b.x, b.y);
-              mma_bf16(acc[1][nt], a[1], b.x, b.y);
-            }
-          }
-        }
-      }
-    } else {
-      // float32: the accumulator layout of m16n8k16, summed with FMAs
-      int a_pix[2][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int m = m0 + mt * 16 + (lane >> 2) + 8 * h;
-          if (m >= m_total) m = 0;
-          a_pix[mt][h] = (m / out_cols) * in_cols + (m % out_cols);
-        }
-      const int ncol = n0 + 2 * (lane & 3);
-      for (int tap = 0; tap < TAPS; ++tap) {
-        const int shift = (tap / 3) * in_cols + (tap % 3);
-        for (int k = 0; k < kc * 16; ++k) {
-          float a[2][2];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              a[mt][h] = to_f(in[(a_pix[mt][h] + shift) * in_ps + k]);
-          const T* wk = w + (tap * kc * 16 + k) * np + ncol;
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            if (nt < n_tiles) {
-              const float b0 = __ldg(wk + nt * 8);
-              const float b1 = __ldg(wk + nt * 8 + 1);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                acc[mt][nt][0] = fmaf(a[mt][0], b0, acc[mt][nt][0]);
-                acc[mt][nt][1] = fmaf(a[mt][0], b1, acc[mt][nt][1]);
-                acc[mt][nt][2] = fmaf(a[mt][1], b0, acc[mt][nt][2]);
-                acc[mt][nt][3] = fmaf(a[mt][1], b1, acc[mt][nt][3]);
-              }
-            }
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt < n_tiles) {
+            const uint2 b = __ldg(wk + nt * 32);
+            mma_bf16(acc[0][nt], a[0], b.x, b.y);
+            mma_bf16(acc[1][nt], a[1], b.x, b.y);
           }
         }
       }
     }
 
-    // epilogue: bias, ReLU, round to T, zero outside the image, store
+    // epilogue: bias, ReLU, round to bf16, zero outside the image, store
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -199,15 +140,15 @@ __device__ void conv_layer(const T* in, int in_ps, T* out, int out_ps,
         const int r = m / out_cols, c = m % out_cols;
         const bool zero = mask && (oy + r < 0 || oy + r >= height ||
                                    ox + c < 0 || ox + c >= width);
-        T* dst = out + m * out_ps;
+        bf16* dst = out + m * out_ps;
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           if (nt < n_tiles) {
             const int n = n0 + nt * 8 + 2 * (lane & 3);
             const float v0 = fmaxf(acc[mt][nt][2 * h] + bias[n], 0.f);
             const float v1 = fmaxf(acc[mt][nt][2 * h + 1] + bias[n + 1], 0.f);
-            dst[n] = zero ? from_f<T>(0.f) : from_f<T>(v0);
-            dst[n + 1] = zero ? from_f<T>(0.f) : from_f<T>(v1);
+            dst[n] = __float2bfloat16_rn(zero ? 0.f : v0);
+            dst[n + 1] = __float2bfloat16_rn(zero ? 0.f : v1);
           }
         }
       }
@@ -219,10 +160,9 @@ __device__ void conv_layer(const T* in, int in_ps, T* out, int out_ps,
 // to NHWC device memory, with an optional 2x2/2 max pool. (y0, x0) is the
 // image position of the region's pixel (0, 0) before pooling; out_h x
 // out_w x co is the output image.
-template <typename T>
-__device__ void store_tile(const T* buf, int ps, int rows, int cols, int co,
-                           bool pool, T* __restrict__ out, int y0, int x0,
-                           int out_h, int out_w) {
+__device__ inline void store_tile(const bf16* buf, int ps, int rows, int cols,
+                           int co, bool pool, bf16* __restrict__ out, int y0,
+                           int x0, int out_h, int out_w) {
   if (pool) {
     const int pr = rows / 2, pc = cols / 2;
     const int oy0 = y0 / 2, ox0 = x0 / 2;
@@ -230,14 +170,17 @@ __device__ void store_tile(const T* buf, int ps, int rows, int cols, int co,
       const int ch = i % co, p = i / co;
       const int py = p / pc, px = p % pc;
       if (oy0 + py >= out_h || ox0 + px >= out_w) continue;
-      const T* s = buf + ((2 * py) * cols + 2 * px) * ps + ch;
-      const float v = fmaxf(fmaxf(to_f(s[0]), to_f(s[ps])),
-                            fmaxf(to_f(s[cols * ps]), to_f(s[cols * ps + ps])));
-      out[((size_t)(oy0 + py) * out_w + ox0 + px) * co + ch] = from_f<T>(v);
+      const bf16* s = buf + ((2 * py) * cols + 2 * px) * ps + ch;
+      const float v =
+          fmaxf(fmaxf(__bfloat162float(s[0]), __bfloat162float(s[ps])),
+                fmaxf(__bfloat162float(s[cols * ps]),
+                      __bfloat162float(s[cols * ps + ps])));
+      out[((size_t)(oy0 + py) * out_w + ox0 + px) * co + ch] =
+          __float2bfloat16_rn(v);
     }
     return;
   }
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(bf16);
   if (co % kVec == 0) {  // 16-byte copies
     const int cv = co / kVec;
     for (int i = threadIdx.x; i < rows * cols * cv; i += kThreads) {
@@ -259,14 +202,14 @@ __device__ void store_tile(const T* buf, int ps, int rows, int cols, int co,
   }
 }
 
-// Host side of both conv kernels: pick the largest output tile of 32x32
-// ... 2x2 (no taller or wider than the even-rounded image) whose two
-// shared buffers fit, then launch one block per (image, tile) on
-// `stream`. `sizes(a, th, tw, &b0, &b1)` gives each buffer's elements; the
-// plan goes into a.th, a.tw, a.buf1 (buffer 1's offset, 16-byte aligned),
-// a.tiles_y and a.tiles_x. Returns a cudaError_t as int; a shape no tile
-// fits is cudaErrorInvalidConfiguration.
-template <typename T, typename Args>
+// Host side: pick the largest output tile of 32x32 ... 2x2 (no taller or
+// wider than the even-rounded image) whose two shared buffers fit, then
+// launch one block per (image, tile) on `stream`. `sizes(a, th, tw, &b0,
+// &b1)` gives each buffer's elements; the plan goes into a.th, a.tw,
+// a.buf1 (buffer 1's offset, 16-byte aligned), a.tiles_y and a.tiles_x.
+// Returns a cudaError_t as int; a shape no tile fits is
+// cudaErrorInvalidConfiguration.
+template <typename Args>
 int launch_tiled(void (*kernel)(Args), Args a, int batch,
                  void (*sizes)(const Args&, int, int, long*, long*),
                  cudaStream_t stream) {
@@ -279,7 +222,7 @@ int launch_tiled(void (*kernel)(Args), Args a, int batch,
     long b0, b1;
     sizes(a, th, tw, &b0, &b1);
     b0 = round_up((int)b0, 8);
-    const long bytes = (b0 + b1) * (long)sizeof(T);
+    const long bytes = (b0 + b1) * (long)sizeof(bf16);
     if (bytes <= kMaxSmem) {
       a.th = th;
       a.tw = tw;

@@ -36,7 +36,7 @@ __all__ = ["SMEM_OPTIN", "build", "build_report", "check", "lib",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu",
-           "block1_sm90.cu", "conv3x3_sm90.cu")
+           "block1_sm90.cu", "conv3x3_sm90.cu", "conv3x3_f32.cu")
 HEADERS = ("conv_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_ekpose_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -54,19 +54,23 @@ SIGNATURES = {
     "ekp_nms": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # scores, ia, ib, score, valid, n_mats, k, stream
     "ekp_greedy_match": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # out, n, stream
+    "ekp_match_latency_probe": (_P, _I, _P),
     # pair, p1, p2, cid1, cid2, score, n_valid, peak, subset, active,
     # b, n_slots, n_peaks, cap, stream
     "ekp_merge_people": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
-    # x, out, w[] , bias[], ch[], n_layers, b, h, w, pool, is_bf16, stream
-    "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, w[] , bias[], ch[], n_layers, b, h, w, pool, stream
+    "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, out, w, b1, b2, b, h, w, fused, stream
     "ekp_block1_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # a, b, d, stream
     "ekp_block1_sm90_probe": (_P, _P, _P, _P),
     # x, out, w, bias, b, h, w, ci, co, pool, tile_n, stream
     "ekp_conv3x3_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, w, bias, b, h, w, ci, co, pool, tile_n, stream
+    "ekp_conv3x3_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

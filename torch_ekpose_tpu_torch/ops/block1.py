@@ -18,9 +18,10 @@ JAX package's: ``x`` ``[B, H, W, 3]`` NHWC, ``w1`` ``[3, 3, 3, c1]`` and
 On a card, :func:`plan_block1` picks the kernel by dtype and widths:
 vgg2016's block 1 in bf16 (``c1 == c2 == 64``) launches
 ``ekp_block1_sm90`` (persistent CTAs, conv1_2 on wgmma); every other input
-(float32, other widths) runs the same function through
-:func:`conv_chain`'s fused kernel, whose launch ``conv_chain.launches``
-counts. ``conv1_fused.launches`` and ``block1_fused.launches`` count
+runs the same function through :func:`conv_chain`: float32 as one
+``conv3x3_f32`` launch per layer (``conv3x3_f32.launches``), bf16 of
+other widths on its fused kernel (``conv_chain.launches``).
+``conv1_fused.launches`` and ``block1_fused.launches`` count
 ``ekp_block1_sm90`` launches in their mode only.
 """
 
@@ -53,7 +54,8 @@ def plan_block1(c1: int, c2, dtype: torch.dtype) -> str:
     """The kernel a CUDA block-1 call takes: ``"sm90"``
     (``ekp_block1_sm90``) for bf16 with ``c1 == 64`` and, for the fused
     block, ``c2 == 64`` (``c2`` None: conv1_1 alone); else ``"chain"``
-    (``conv_chain``'s fused kernel)."""
+    (:func:`conv_chain`, which routes by
+    :func:`~torch_ekpose_tpu_torch.ops.conv_chain.plan_chain`)."""
     if dtype == torch.bfloat16 and c1 == SM90_CHANNELS and c2 in (
             None, SM90_CHANNELS):
         return "sm90"

@@ -22,9 +22,9 @@ __all__ = ["MAX_K", "check_k", "greedy_match", "greedy_match_torch",
 
 def smem_bytes(k: int) -> int:
     """Dynamic shared memory of one ``ekp_greedy_match`` block: the
-    ``[K, K | 1]`` float32 tile (rows padded to an odd length) and the
-    ``ceil(K / 32)`` words of used-column bits."""
-    return 4 * (k * (k | 1) + -(-k // 32))
+    ``[K, K | 1]`` float32 tile (rows padded to an odd length). The
+    per-row cache and the used-column bits live in registers."""
+    return 4 * k * (k | 1)
 
 
 #: largest K whose block fits the opt-in shared memory (241 on Hopper)
@@ -86,7 +86,8 @@ def greedy_match(scores: torch.Tensor) -> Match:
     valid bool), each [..., K].
 
     A CPU tensor takes the twin; a CUDA tensor launches
-    ``ekp_greedy_match`` (one warp per matrix, K <= :data:`MAX_K`).
+    ``ekp_greedy_match`` (one block per matrix, whose one warp runs the
+    rounds on cached row maxima; K <= :data:`MAX_K`).
     """
     if scores.device.type == "cpu":
         return greedy_match_torch(scores)
@@ -119,3 +120,16 @@ def greedy_match(scores: torch.Tensor) -> Match:
 
 #: launches of the CUDA kernel since the count was last set to 0
 greedy_match.launches = 0
+
+
+def _latency_probe(n: int = 4096) -> Tuple[float, float]:
+    """(SM cycles of one dependent warp shuffle, of one dependent
+    ``redux.sync``), each the mean of a chain of ``n`` on the current card:
+    what a round of ``ekp_greedy_match`` waits on. A measurement hook for
+    the kernel's latency bound; no path calls it."""
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    err = _build.lib().ekp_match_latency_probe(_build.ptr(out), n,
+                                               _build.stream_of(out))
+    _build.check(err, "ekp_match_latency_probe")
+    shfl, redux, _ = out.tolist()
+    return shfl / n, redux / n
