@@ -12,7 +12,11 @@ Phases (any failure raises and exits non-zero):
    ``conv3x3_sm90.cu``'s, ``conv3x3_f32.cu``'s and ``block1_sm90.cu``'s
    kernels;
 3. hold each decode kernel against its plain PyTorch twin on the card,
-   exactly, at the decode path's shapes (K = 32, 96 person rows) and
+   exactly, at the decode path's shapes (K = 32, 96 person rows), NMS
+   also bit for bit at ``NMS_CASES`` of ``tests/torch_port_inputs.py``
+   (one cell, 45x53 and 12x33 planes, the decode's channel slice, NaN /
+   +-inf / -0.0 / threshold cells; planes that take the 16-byte path once more
+   from a base 4 bytes off, on the 4-byte path), one launch a call, and
    match at K = 96, 128 and 241 and merge at 384 rows (over 128 opened),
    time both (plain, kernel, kernel, plain), and read each kernel's own
    device time from ``torch.profiler`` beside its CUDA-event time; give
@@ -67,7 +71,18 @@ Phases (any failure raises and exits non-zero):
    within 1e-4 of cuDNN's float32; then the three bf16 routes and cuDNN
    timed in turns, and the float32 pass and cuDNN's float32 in turns;
 8. ``PoseServer``: four threads ``submit()`` a frame each and
-   ``GET /healthz`` answers.
+   ``GET /healthz`` answers;
+9. the host decode: the native assembler builds with g++ (a failure
+   raises), ``"auto"`` resolves to ``"native"``, and
+   ``PoseEstimator("vgg2016")``, built with no ``device``, lands on the
+   card, where ``get_outputs`` and the default ``estimate()`` (timed by
+   the host clock) run on one 368x432 frame and agree with the native
+   decode of those maps; the four golden scenes and a crowded frame
+   decode through ``"native"`` and ``"numpy"`` to the people the JAX
+   package's host decode found (``tests/data/
+   torch_host_decode_golden.npz``: parts and coordinates exact, scores
+   within rtol 1e-5), people in every scene, and the device decode of the
+   crowded frame (32 peaks a part) finds other people.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -82,6 +97,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 
@@ -89,6 +105,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.join(ROOT, "tests")
 SCRIPTS = os.path.join(ROOT, "scripts")
 GOLDEN = os.path.join(TESTS, "data", "torch_decode_golden.npz")
+HOST_GOLDEN = os.path.join(TESTS, "data", "torch_host_decode_golden.npz")
 BATCH, HEIGHT, WIDTH = 8, 368, 432
 K, CAP = 32, 96
 SEED = 0
@@ -152,11 +169,26 @@ def check_kernels(torch, prof, dec, rng, inputs):
                     merge.merge_people_torch, margs, "csrc/merge.cu",
                     "torch_ekpose_tpu/ops/pallas_merge.py:133"))
 
+    # NMS at the shapes and on the draws of its walk's CPU emulation
+    # (tests/test_torch_nms_walk.py), and the aligned ones again from a
+    # base 4 bytes off (the kernel's 4-byte path); their own generator
+    # leaves the other kernels' draws as they were
+    larger = {"masked_peak_scores": []}
+    for label, (shape, keep, _) in inputs.NMS_CASES.items():
+        dense = torch.from_numpy(inputs.nms_case(
+            np.random.default_rng(11), label)).to(dev)
+        shifted = torch.empty(dense.numel() + 1, device=dev)[1:].view(shape)
+        shifted.copy_(dense)
+        for tag, base in (("", dense), (" 4-byte path", shifted)):
+            if tag and not nms.is_aligned(dense):
+                continue
+            larger["masked_peak_scores"].append((label + tag, (
+                base[:, :keep] if keep else base, inputs.NMS_THRESH)))
     # the capacities a crowded scene needs: K = 96 and 128 (past 64-bit
     # masks), a 384-row table with over 128 rows opened
-    larger = {"greedy_match": [
+    larger.update({"greedy_match": [
         (f"K={k}", (torch.from_numpy(inputs.match_scores(rng, BATCH, k))
-                    .to(dev),)) for k in (96, 128, match.MAX_K)]}
+                    .to(dev),)) for k in (96, 128, match.MAX_K)]})
     big = inputs.merge_inputs(rng, BATCH, 128, 40)
     larger["merge_people"] = [("cap=384", tuple(
         torch.from_numpy(big[name]).to(dev) for name in (
@@ -164,16 +196,22 @@ def check_kernels(torch, prof, dec, rng, inputs):
             "peak_score")) + (384,))]
 
     def check(name, kernel, plain, kargs, label, reps):
+        before = kernel.launches
         got = kernel(*kargs)
+        launched = kernel.launches - before
         want = plain(*kargs)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(got, want)
         exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        if name == "masked_peak_scores":   # bit for bit, -0.0 included
+            exact = exact and launched == 1 and all(
+                torch.equal(g.view(torch.int32), w.view(torch.int32))
+                for g, w in zip(got, want))
         print(f"kernel {name} {label}: shapes "
               f"{[tuple(g.shape) for g in got]} exact={exact} "
-              f"max_abs_err={err}")
+              f"max_abs_err={err} launched={launched}")
         if not exact:
             raise AssertionError(f"{name} {label} differs from its twin "
                                  f"({err})")
@@ -431,8 +469,6 @@ def check_crowded(torch, inputs):
     than K) decoded at K = 96 and 192 person rows (64 people) on the card
     and by the CPU twins: integer fields exact, float fields within rtol
     1e-5 (the refinement matmuls sum in another order), people found."""
-    import warnings
-
     from torch_ekpose_tpu_torch.config import Config
     from torch_ekpose_tpu_torch.decode import device as decode_device
 
@@ -597,6 +633,91 @@ def check_server(est, rng):
         raise AssertionError(f"server failed: {errors}")
 
 
+def check_host_decode(prof, rng, golden_script):
+    """Phase 9: the host decode on the card's machine, against the JAX
+    package's host decode of the same maps."""
+    from torch_ekpose_tpu_torch import native
+    from torch_ekpose_tpu_torch.decode import api
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator, padding
+
+    t0 = time.perf_counter()
+    lib = native.build()                       # raises with g++'s output
+    print(f"native assembler built: {os.path.relpath(lib, ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if api.resolve_backend("auto") != "native":
+        raise AssertionError('"auto" did not resolve to "native"')
+
+    est = PoseEstimator("vgg2016", seed=SEED)
+    if est.device.type != "cuda" or est.decode_backend != "auto":
+        raise AssertionError(f"PoseEstimator() on {est.device} with "
+                             f"{est.decode_backend!r}")
+    frame = rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+    est.get_outputs(frame)                     # warm-up: cuDNN search
+    times = {"get_outputs": [], "estimate": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pafs, heat, scale = est.get_outputs(frame)
+        times["get_outputs"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        humans, scale_e = est.estimate(frame)
+        times["estimate"].append((time.perf_counter() - t0) * 1e3)
+    im_pad = padding(frame, est.dest_size, 8)[0]
+    h, w = im_pad.shape[0] // 8, im_pad.shape[1] // 8
+    if pafs.shape != (h, w, 38) or heat.shape != (h, w, 19) or \
+            pafs.dtype != np.float32 or not np.isfinite(pafs).all() or \
+            not np.isfinite(heat).all() or scale != scale_e:
+        raise AssertionError(f"get_outputs: {pafs.shape} {heat.shape} "
+                             f"{pafs.dtype} scale {scale} / {scale_e}")
+    people = golden_script.people_rows
+    if not np.array_equal(people(0, humans), people(0, api.paf_to_pose(
+            heat, pafs, est.config, backend="native"))):
+        raise AssertionError("estimate() differs from the native decode of "
+                             "get_outputs' maps")
+    print(f"host decode: PoseEstimator() on {est.device}, "
+          f"decode_backend {est.decode_backend!r} -> "
+          f"{api.resolve_backend(est.decode_backend)!r}; one {HEIGHT}x"
+          f"{WIDTH} frame, maps {heat.shape[:2]}, {len(humans)} people; "
+          + ", ".join(f"{k} median {sorted(v)[2]:.3f} ms" for k, v in
+                      times.items())
+          + f" (host clock, 5 calls), on {prof.card_line()}")
+
+    golden, host = np.load(GOLDEN), np.load(HOST_GOLDEN)
+    scenes = list(zip(golden["heatmaps"], golden["pafs"])) + [
+        (host["crowded_heatmaps"][0], host["crowded_pafs"][0])]
+    rows = {}
+    for backend in ("native", "numpy"):
+        t0 = time.perf_counter()
+        rows[backend] = np.concatenate([
+            people(i, api.paf_to_pose(hm, pf, backend=backend))
+            for i, (hm, pf) in enumerate(scenes)])
+        ms = (time.perf_counter() - t0) * 1e3
+        want = host[f"people_{backend}"]
+        ok = rows[backend].shape == want.shape and np.array_equal(
+            rows[backend][:, :5], want[:, :5]) and np.allclose(
+            rows[backend][:, 5:], want[:, 5:], rtol=1e-5, atol=0)
+        found = [len(np.unique(rows[backend][rows[backend][:, 0] == i, 1]))
+                 for i in range(len(scenes))]
+        print(f"host decode {backend}: people per scene {found} (the JAX "
+              f"package's: equal={ok}), {ms:.1f} ms for the {len(scenes)} "
+              "scenes")
+        if not ok or min(found) < 1:
+            raise AssertionError(f"host decode {backend} differs from the JAX "
+                                 "package's")
+    if not np.array_equal(rows["native"][:, :5], rows["numpy"][:, :5]):
+        raise AssertionError("native and numpy found other people")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # saturated K
+        device = people(4, api.paf_to_pose(*scenes[4], backend="device"))
+    crowded = rows["native"][rows["native"][:, 0] == 4]
+    print(f"crowded frame: device decode (32 peaks a part) "
+          f"{len(np.unique(device[:, 1]))} people, host decode "
+          f"{len(np.unique(crowded[:, 1]))}")
+    if device.shape == crowded.shape and np.array_equal(device[:, :5],
+                                                        crowded[:, :5]):
+        raise AssertionError("the device decode found the host's people on "
+                             "the crowded frame")
+
+
 def load_script(name: str):
     """``scripts/<name>.py``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -649,6 +770,7 @@ def main() -> int:
     time_decodes(torch, prof, dec, est, frames, golden)
     check_prefix_path(torch, prof, convs, model, conv_frames)
     check_server(est, rng)
+    check_host_decode(prof, rng, load_script("make_torch_golden"))
 
     kernels += convs
     for rec in kernels:

@@ -69,6 +69,46 @@ def test_nms_kernel_equals_twin(cuda, seed):
     assert out.shape == (B, 18, 46, 54) and torch.isinf(out).any()
 
 
+@pytest.mark.parametrize("label", list(inputs.NMS_CASES))
+def test_nms_kernel_walk_cases_bit_equal(cuda, label):
+    """The shapes of tests/test_torch_nms_walk.py on the card, bit for bit
+    (-0.0 and all): on the path the wrapper picks, and, for planes that
+    take the 16-byte path, once more from a base 4 bytes off, which takes
+    the 4-byte path. Each call launches the kernel once."""
+    full = inputs.nms_case(np.random.default_rng(11), label)
+    shape, keep, _ = inputs.NMS_CASES[label]
+    dense = torch.from_numpy(full).to(cuda)
+    shifted = torch.empty(dense.numel() + 1, device=cuda)[1:].view(shape)
+    shifted.copy_(dense)
+    for base in [dense] + ([shifted] if nms.is_aligned(dense) else []):
+        maps = base[:, :keep] if keep else base
+        assert nms.is_aligned(maps) == (base is dense
+                                        and (shape[2] * shape[3]) % 4 == 0)
+        before = nms.masked_peak_scores.launches
+        got = nms.masked_peak_scores(maps, inputs.NMS_THRESH)
+        want = nms.masked_peak_scores_torch(maps, inputs.NMS_THRESH)
+        torch.cuda.synchronize()
+        assert nms.masked_peak_scores.launches == before + 1
+        assert got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_device_backend_on_card_equals_cpu(cuda):
+    """``decode/api.py``'s ``"device"`` backend takes numpy maps to the
+    card and finds the people the CPU twins find on a golden scene."""
+    from torch_ekpose_tpu_torch.decode import api
+
+    golden = np.load(GOLDEN)
+    heat, pafs = golden["heatmaps"][0], golden["pafs"][0]
+    launches = nms.masked_peak_scores.launches
+    on_card = api.paf_to_pose(heat, pafs, backend="device")
+    assert nms.masked_peak_scores.launches == launches + 1
+    on_cpu = api.paf_to_pose(heat, pafs, backend="device", device="cpu")
+    assert len(on_card) == golden["n_humans"][0] >= 1
+    assert [sorted(h.body_parts) for h in on_card] == [
+        sorted(h.body_parts) for h in on_cpu]
+
+
 @pytest.mark.parametrize("k", [8, 32, 64, 96, 128, match.MAX_K, 160, 192, 224])
 def test_match_kernel_equals_twin(cuda, k):
     """Every ``greedy_match_kernel<R>`` instance, R = ceil(K / 32) = 1 ... 8,

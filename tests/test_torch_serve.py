@@ -60,3 +60,22 @@ def test_serve_resolves_dtype_as_the_jax_cli(case):
     assert args.dtype == WANT[case]
     assert serve._DTYPES[args.dtype] in (torch.bfloat16, torch.float32,
                                          "int8")
+
+
+def test_serve_decodes_on_the_device(monkeypatch):
+    """The server batches frames: its estimator takes the device decode,
+    as the JAX CLI's ``set_defaults(decode_backend="jax")`` gives it."""
+    made = {}
+
+    class Stop(Exception):
+        pass
+
+    def estimator(*args, **kwargs):
+        made.update(kwargs)
+        raise Stop
+
+    monkeypatch.setattr(serve, "PoseEstimator", estimator)
+    with pytest.raises(Stop):
+        serve.main(["--device", "cpu"])
+    assert made["decode_backend"] == "device"
+    assert made["device"] == "cpu" and made["compute_dtype"] is torch.bfloat16

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's host-side modules
-(``constants``, ``config``, ``utils/human``) against their originals.
+(``constants``, ``config``, ``utils/human``, ``decode/oracle``) against
+their originals.
 
 The port imports nothing of the JAX package, so it keeps copies; these
 tests hold each copy equal to its original: the code itself (the syntax
@@ -19,13 +20,17 @@ import pytest
 
 from torch_ekpose_tpu import config as jax_config
 from torch_ekpose_tpu import constants as jax_constants
+from torch_ekpose_tpu.decode import oracle as jax_oracle
+from torch_ekpose_tpu.ops import resize as jax_resize
 from torch_ekpose_tpu.utils import human as jax_human
 from torch_ekpose_tpu_torch import config as port_config
 from torch_ekpose_tpu_torch import constants as port_constants
+from torch_ekpose_tpu_torch.decode import oracle as port_oracle
+from torch_ekpose_tpu_torch.ops import resize as port_resize
 from torch_ekpose_tpu_torch.utils import human as port_human
 
 PAIRS = [(jax_constants, port_constants), (jax_config, port_config),
-         (jax_human, port_human)]
+         (jax_human, port_human), (jax_oracle, port_oracle)]
 
 
 def _body(module, rename=False) -> str:
@@ -38,7 +43,7 @@ def _body(module, rename=False) -> str:
 
 
 @pytest.mark.parametrize("orig,copy", PAIRS,
-                         ids=["constants", "config", "human"])
+                         ids=["constants", "config", "human", "oracle"])
 def test_copy_has_the_originals_code(orig, copy):
     assert _body(copy, rename=True) == _body(orig)
 
@@ -101,3 +106,15 @@ def test_human_computes_the_same():
     np.testing.assert_array_equal(
         port_human.draw_humans(img, [got], imgcopy=True),
         jax_human.draw_humans(img, [want], imgcopy=True))
+
+
+@pytest.mark.parametrize("shape,dst,interp", [
+    ((5, 5), (40, 40), "cubic"), ((3, 5), (24, 40), "cubic"),
+    ((37, 50, 3), (64, 86), "linear"), ((9, 7, 2), (4, 3), "nearest")])
+def test_resize_image_np_is_the_originals(shape, dst, interp):
+    """The oracle's patch refinement (x8 bicubic of 5x5 patches, clipped
+    ones at the border) and the no-cv2 padding path resize alike."""
+    img = np.random.default_rng(2).random(shape).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_resize.resize_image_np(img, *dst, interp),
+        jax_resize.resize_image_np(img, *dst, interp))

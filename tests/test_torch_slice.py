@@ -8,6 +8,7 @@ tests/test_torch_models.py). The decode of those maps must be equal.
 """
 
 import ast
+import inspect
 import json
 import os
 import subprocess
@@ -75,12 +76,29 @@ def test_estimate_batch_maps_and_decode_match_jax(estimators):
 
 
 def test_estimator_refuses_unported_options():
-    for kwargs in ({"compute_dtype": "int8"}, {"decode_backend": "numpy"},
-                   {"s2d_blocks": 1}):
+    for kwargs in ({"compute_dtype": "int8"}, {"s2d_blocks": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PoseEstimator(device="cpu", **kwargs)
     with pytest.raises(ValueError, match="precision"):
         PoseEstimator(device="cpu", precision="medium")
+    with pytest.raises(ValueError, match="decode_backend"):
+        PoseEstimator(device="cpu", decode_backend="oracle")
+
+
+def test_estimator_defaults_are_the_jax_packages():
+    """The card unless the caller asks for the CPU; ``decode_backend``
+    defaults to ``"auto"`` as in the JAX package, and every backend name
+    of ``decode/api.py`` is taken (``"jax"`` is the device decode)."""
+    params = inspect.signature(PoseEstimator).parameters
+    assert params["device"].default == "cuda"
+    assert params["decode_backend"].default == inspect.signature(
+        JaxEstimator).parameters["decode_backend"].default == "auto"
+    for name, want in (("auto", "auto"), ("numpy", "numpy"),
+                       ("native", "native"), ("device", "device"),
+                       ("jax", "device")):
+        est = PoseEstimator(device="cpu", decode_backend=name,
+                            compute_dtype=torch.float32)
+        assert est.decode_backend == want
 
 
 @pytest.fixture(scope="module")
@@ -163,7 +181,8 @@ def test_port_imports_without_jax():
                                   "scripts/profile_torch_conv.py",
                                   "scripts/profile_torch_decode.py",
                                   "scripts/profile_torch_kernels.py",
-                                  "scripts/profile_torch_match.py"])
+                                  "scripts/profile_torch_match.py",
+                                  "scripts/profile_torch_nms.py"])
 def test_card_checks_name_only_the_port(path):
     """The card-side scripts, tests and the inputs they load import
     neither JAX nor the JAX package: the card has no JAX."""

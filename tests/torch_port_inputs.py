@@ -19,8 +19,9 @@ import numpy as np
 from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
-__all__ = ["SM90_CHAINS", "chain_arrays", "crowded_maps", "match_scores",
-           "merge_inputs", "nms_maps", "packed_mismatches"]
+__all__ = ["NMS_CASES", "NMS_THRESH", "SM90_CHAINS", "chain_arrays",
+           "crowded_maps", "match_scores", "merge_inputs", "nms_case",
+           "nms_maps", "packed_mismatches"]
 
 #: a standing person's 18 keypoints around the neck, in pixels at scale 1
 SKELETON = np.array([
@@ -53,6 +54,43 @@ def nms_maps(rng: np.random.Generator, b: int, c: int, h: int,
     steps = rng.integers(0, 8, (b, c, h, w)).astype(np.float32) / 8
     plateau = rng.random((b, c, h, w)) < 0.5
     return np.where(plateau, steps, smooth).astype(np.float32)
+
+
+#: NMS inputs at the shapes its kernel's walk must cover, by label:
+#: (allocated ``[B, C, H, W]``, channels kept (a strided view) or None,
+#: special values or not). A single cell; 45x53 planes (the 4-byte path);
+#: 12x33 planes (the 16-byte path with an odd width: bands a multiple of
+#: 4 rows); the
+#: decode's part-channel slice of a 19-channel heatmap; the serving
+#: decode's shape with NaN, +-inf, -0.0 and cells equal to the threshold.
+NMS_CASES = {
+    "1x1x1x1": ((1, 1, 1, 1), None, False),
+    "3x5x45x53": ((3, 5, 45, 53), None, False),
+    "2x3x12x33": ((2, 3, 12, 33), None, False),
+    "2x19x46x54[:, :18]": ((2, 19, 46, 54), 18, False),
+    "8x18x46x54 specials": ((8, 18, 46, 54), None, True),
+}
+#: the threshold of the NMS cases (the decode's THRESH_HEATMAP)
+NMS_THRESH = 0.15
+
+
+def nms_case(rng: np.random.Generator, label: str) -> np.ndarray:
+    """The allocated float32 maps of ``NMS_CASES[label]`` (slice the kept
+    channels off them); specials replace about 2% of the cells each,
+    every border among them."""
+    shape, _, specials = NMS_CASES[label]
+    maps = nms_maps(rng, *shape)
+    if specials:
+        values = (np.nan, np.inf, -np.inf, -0.0, 0.0,
+                  np.float32(NMS_THRESH))
+        pick = rng.integers(0, 50, shape)
+        for i, v in enumerate(values):
+            maps[pick == i] = v
+        maps[:, :, 0, ::7] = np.float32(NMS_THRESH)
+        maps[:, :, -1, ::5] = np.nan
+        maps[:, :, ::3, 0] = -0.0
+        maps[:, :, ::4, -1] = np.inf
+    return maps
 
 
 def match_scores(rng: np.random.Generator, b: int, k: int) -> np.ndarray:

@@ -10,10 +10,12 @@ kernels are hand-written CUDA kernels here (``csrc/``, built with nvcc at
 first use by ``ops/_build.py``); the serving forward's convolutions go to
 cuDNN, and the VGG prefix's conv kernels are in ``ops/conv_chain.py``
 and ``ops/block1.py``. The port keeps its own copies of the JAX package's
-``constants``, ``config`` and ``utils/human``.
+``constants``, ``config``, ``utils/human``, numpy decode
+(``decode/oracle.py``) and C++ assembler (``native/``), which decode one
+image on the host as the JAX package's ``estimate()`` does.
 
 Importing the package loads no CUDA and builds nothing.
 """
 
-__all__ = ["cli", "config", "constants", "decode", "models", "ops",
+__all__ = ["cli", "config", "constants", "decode", "models", "native", "ops",
            "runtime", "utils"]

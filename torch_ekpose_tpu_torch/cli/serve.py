@@ -88,6 +88,9 @@ def main(argv=None) -> None:
         args.model, state_dict, device=args.device,
         compute_dtype=_DTYPES[args.dtype], precision=args.precision,
         preprocess=args.preprocess, dest_size=args.dest_size, seed=args.seed,
+        # the server batches frames and decodes on the card, as the JAX
+        # CLI's parser.set_defaults(decode_backend="jax") does
+        decode_backend="device",
     )
     server = PoseServer(
         estimator, host=args.host, port=args.port,

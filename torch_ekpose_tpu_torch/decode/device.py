@@ -46,7 +46,7 @@ from torch_ekpose_tpu_torch.utils.human import BodyPart, Human
 __all__ = [
     "DecodeResult", "LIMB_PAIRS", "build_packed_decoder", "cap_saturation",
     "decode_batched", "humans_from_result", "pack_result",
-    "packed_to_humans", "tf32", "unpack_result",
+    "packed_to_humans", "paf_to_pose_device", "tf32", "unpack_result",
 ]
 
 #: the 19 limbs' (part a, part b) indices, COCO order
@@ -356,6 +356,25 @@ def build_packed_decoder(config: Optional[Config] = None):
         thresh_human_score=config.TEST.THRESH_HUMAN_SCORE,
     )
     return lambda heatmaps, pafs: pack_result(decoder(heatmaps, pafs))
+
+
+def paf_to_pose_device(heatmaps, pafs, config: Optional[Config] = None,
+                       device=None) -> List[Human]:
+    """One image's [H, W, 19] heatmaps + [H, W, 38] PAFs (numpy or
+    tensors) -> Humans through the device decode, on ``device`` (default:
+    the tensors' own device, the card for numpy arrays). The counterpart
+    of the JAX package's ``paf_to_pose_jax``."""
+    config = config or default_cfg
+    if device is None:
+        device = heatmaps.device if torch.is_tensor(heatmaps) else "cuda"
+    maps = [torch.as_tensor(m, dtype=torch.float32, device=device)[None]
+            for m in (heatmaps, pafs)]
+    with torch.inference_mode():
+        packed = build_packed_decoder(config)(*maps)
+    stride = config.MODEL.DOWNSAMPLE
+    return packed_to_humans(packed[0].cpu().numpy(),
+                            heatmaps.shape[0] * stride,
+                            heatmaps.shape[1] * stride, config)
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,9 @@ SMEM_OPTIN = 232_448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point -> argtypes; each returns a cudaError_t as int
 SIGNATURES = {
-    # maps, out, b, c, h, w, stride_b, stride_c, thresh, stream
-    "ekp_nms": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # maps, out, b, c, h, w, stride_b, stride_c, thresh, band_rows,
+    # threads, aligned, stream
+    "ekp_nms": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # scores, ia, ib, score, valid, n_mats, k, stream
     "ekp_greedy_match": (_P, _P, _P, _P, _P, _I, _I, _P),
     # out, n, stream

@@ -10,8 +10,8 @@ needs (that module imports ``jax.numpy``): each 1-D resample is a dense
 - border replication (taps clamped to the valid range).
 
 The decoder's x8 bicubic peak refinement uses ``resize_matrix(5, 40,
-"cubic")``; the estimator's no-cv2 padding path uses
-:func:`resize_image_np`.
+"cubic")``; the estimator's no-cv2 padding path and the numpy decode's
+peak refinement (``decode/oracle.py``) use :func:`resize_image_np`.
 """
 
 from __future__ import annotations

@@ -5,7 +5,11 @@ lib/evaluate/estimator.py). A batch of uint8 BGR frames goes to the
 device, is preprocessed there, runs the vgg2016 forward in the compute
 dtype (cuDNN convs, NCHW) and the batched decode
 (``decode/device.py``); only the packed ``[B, L]`` result comes back, as
-one device->host copy per batch.
+one device->host copy per batch. One image of any size goes through
+``estimate``, which routes as the JAX package's does: the maps come back
+to the host (``get_outputs``) and ``decode/api.py`` decodes them there
+(``decode_backend="auto"``: native, else numpy), or, with ``"device"``,
+the batched device decode runs on the image alone.
 
 Public layouts are the JAX package's: frames ``[B, H, W, 3]`` uint8,
 maps ``[B, h, w, C]``. :func:`nhwc_to_nchw` / :func:`nchw_to_nhwc` are the
@@ -22,6 +26,7 @@ import torch
 
 from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.config import Config, cfg as default_cfg
+from torch_ekpose_tpu_torch.decode import api as decode_api
 from torch_ekpose_tpu_torch.decode import device as decode_device
 from torch_ekpose_tpu_torch.models.factory import get_model, init_model
 from torch_ekpose_tpu_torch.ops.resize import resize_image_np
@@ -125,7 +130,10 @@ class PoseEstimator:
     """Owns a model + weights on one device and serves pose inference.
 
     ``state_dict=None`` initializes random weights from ``seed``.
-    Parameters are cast to ``compute_dtype`` once. Options the port does
+    Parameters are cast to ``compute_dtype`` once. ``device`` is the card
+    unless the caller asks for another. ``decode_backend`` is one of
+    ``decode/api.py``'s backends and decides how :meth:`estimate` decodes;
+    the batched calls always decode on the device. Options the port does
     not have yet raise ``NotImplementedError`` instead of being ignored.
     """
 
@@ -135,12 +143,12 @@ class PoseEstimator:
         state_dict: Optional[dict] = None,
         config: Optional[Config] = None,
         *,
-        device,
+        device="cuda",
         compute_dtype=torch.bfloat16,
         precision: str = "fast",
         preprocess: str = "vgg",
         dest_size: int = 368,
-        decode_backend: str = "device",
+        decode_backend: str = "auto",
         s2d_blocks: int = 0,
         seed: int = 0,
     ):
@@ -153,11 +161,10 @@ class PoseEstimator:
                 f"compute_dtype must be torch.float32 or torch.bfloat16, "
                 f"got {compute_dtype!r}"
             )
-        if decode_backend != "device":
-            raise NotImplementedError(
-                f"decode_backend={decode_backend!r}: the port decodes on "
-                "the device only; the host backends are not ported yet "
-                "(ROADMAP Queue 1 item 6)"
+        if decode_backend not in decode_api.BACKENDS:
+            raise ValueError(
+                f"unknown decode_backend {decode_backend!r}; expected one "
+                f"of {decode_api.BACKENDS}"
             )
         precision_mode(precision)  # validates the name
         self.config = config or default_cfg
@@ -167,6 +174,9 @@ class PoseEstimator:
         self.precision = precision
         self.preprocess = preprocess
         self.dest_size = dest_size
+        #: "jax" is the JAX package's name for the device decode
+        self.decode_backend = ("device" if decode_backend == "jax"
+                               else decode_backend)
         if state_dict is None:
             model = init_model(
                 model_name, generator=torch.Generator().manual_seed(seed),
@@ -240,9 +250,32 @@ class PoseEstimator:
             for i in range(b)
         ]
 
-    def estimate(self, image: np.ndarray) -> Tuple[List[Human], float]:
-        """Assembled people + im_scale for one BGR image of any size."""
+    def get_outputs(
+        self, image: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """(pafs [h, w, 38], heatmaps [h, w, 19], im_scale) as float32
+        numpy for one BGR image of any size (reference
+        estimator.py:71-88), with one device->host copy."""
         im_pad, im_scale, _ = padding(
             image, self.dest_size, self.config.MODEL.DOWNSAMPLE
         )
-        return self.estimate_batch(im_pad[None])[0], im_scale
+        paf, heatmap = self._forward(im_pad[None])
+        maps = nchw_to_nhwc(torch.cat((paf, heatmap), dim=1))[0].cpu().numpy()
+        n_paf = paf.shape[1]
+        return (np.ascontiguousarray(maps[..., :n_paf]),
+                np.ascontiguousarray(maps[..., n_paf:]), im_scale)
+
+    def estimate(self, image: np.ndarray) -> Tuple[List[Human], float]:
+        """Assembled people + im_scale for one BGR image of any size:
+        ``get_outputs`` and the host decode of ``decode_backend``, or with
+        ``"device"`` the batched device decode of the image alone."""
+        if self.decode_backend == "device":
+            im_pad, im_scale, _ = padding(
+                image, self.dest_size, self.config.MODEL.DOWNSAMPLE
+            )
+            return self.estimate_batch(im_pad[None])[0], im_scale
+        pafs, heatmaps, im_scale = self.get_outputs(image)
+        humans = decode_api.paf_to_pose(
+            heatmaps, pafs, self.config, backend=self.decode_backend
+        )
+        return humans, im_scale
