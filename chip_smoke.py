@@ -71,7 +71,10 @@ Phases (any failure raises and exits non-zero):
    within 1e-4 of cuDNN's float32; then the three bf16 routes and cuDNN
    timed in turns, and the float32 pass and cuDNN's float32 in turns;
 8. ``PoseServer``: four threads ``submit()`` a frame each and
-   ``GET /healthz`` answers;
+   ``GET /healthz`` answers; then, on a server whose estimator replays
+   the eval scenes' maps (phase 10a), ``POST /pose`` of one scene as a
+   PNG and as a JPEG (written by the port's ``_write_image``: cv2, else
+   Pillow) answers 200 with the scene's people;
 9. the host decode: the native assembler builds with g++ (a failure
    raises), ``"auto"`` resolves to ``"native"``, and
    ``PoseEstimator("vgg2016")``, built with no ``device``, lands on the
@@ -82,7 +85,31 @@ Phases (any failure raises and exits non-zero):
    package's host decode found (``tests/data/
    torch_host_decode_golden.npz``: parts and coordinates exact, scores
    within rtol 1e-5), people in every scene, and the device decode of the
-   crowded frame (32 peaks a part) finds other people.
+   crowded frame (32 peaks a part) finds other people;
+10. the evaluation and image entry points (``evaluate/``, ``cli/``),
+    each run with the decode kernels' counts set to 0 before and read
+    after: (a) ``run_eval`` at batch 8 on the eval scenes of
+    ``tests/data/torch_eval_golden.npz`` written as PNGs, with a
+    ``PoseEstimator`` whose ``_forward`` replays each frame's golden maps
+    (found by its fill), so its real ``estimate_batch_async``, device
+    decode and ``collect_batch`` run on the card: ``nms``, ``match`` and
+    ``merge`` must launch, the forward must run 3 times (a full batch of
+    8 and remainders of 1 and 3), and the rows must be the JAX package's
+    device-decode rows (ids, flags and people exact, coordinates within
+    1e-3 px, AP within 1e-6, people in every image); then batch 1 with
+    ``"native"`` (12 forwards) must give its host-decode rows exactly;
+    (b) ``cli.eval.main`` with ``-m vgg2016``, seeded random weights and
+    the card's defaults (batch 8, device decode, bf16) on 32 random PNG
+    frames of 640x480 and 480x640 (cv2's or Pillow's PNGs), cold and
+    warm, with the images per second of each ``run_eval`` (reading and
+    padding included) and the AP line (random weights find no people);
+    (c) ``cli.run_image.main`` on one of those frames writes a PNG that
+    reads back at the input's shape; (d)
+    ``cli.bench_latency.main`` at 368 and 656 prints a p50/p99/fps row
+    for each size, and its call, ``estimate()`` with the device decode,
+    is traced for the card's busy share; 10b also times the eval reader
+    (``_prefetch_read``: read and pad) alone and traces one ``run_eval``
+    of each kind for the card's busy share.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -90,12 +117,16 @@ the card's name and power limit; the last line is the result JSON.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
+import tempfile
 import os
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 
@@ -106,6 +137,7 @@ TESTS = os.path.join(ROOT, "tests")
 SCRIPTS = os.path.join(ROOT, "scripts")
 GOLDEN = os.path.join(TESTS, "data", "torch_decode_golden.npz")
 HOST_GOLDEN = os.path.join(TESTS, "data", "torch_host_decode_golden.npz")
+EVAL_GOLDEN = os.path.join(TESTS, "data", "torch_eval_golden.npz")
 BATCH, HEIGHT, WIDTH = 8, 368, 432
 K, CAP = 32, 96
 SEED = 0
@@ -602,8 +634,32 @@ def time_decodes(torch, prof, dec, est, frames, golden):
                   for name, t in times.items()))
 
 
-def check_server(est, rng):
-    """Phase 8: micro-batched submits from 4 threads and /healthz."""
+def codecs() -> str:
+    """The image libraries installed here, with their versions."""
+    found = []
+    for name in ("cv2", "PIL"):
+        if importlib.util.find_spec(name):
+            module = importlib.import_module(name)
+            found.append(f"{name} {getattr(module, '__version__', '?')}")
+    return ", ".join(found) or "neither cv2 nor Pillow"
+
+
+def post(port: int, body: bytes):
+    """(status, JSON reply) of ``POST /pose`` with ``body``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/pose", data=body,
+        headers={"Content-Type": "application/octet-stream"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def check_server(est, rng, replay, golden_eval, inputs):
+    """Phase 8: micro-batched submits from 4 threads and /healthz; then
+    a PNG and a JPEG posted to a server on the replaying estimator."""
+    from torch_ekpose_tpu_torch.evaluate.evaluator import _write_image
     from torch_ekpose_tpu_torch.runtime.server import PoseServer
 
     server = PoseServer(est, port=0, max_batch=BATCH, max_wait_ms=50.0).start()
@@ -631,6 +687,28 @@ def check_server(est, rng):
           f"{[None if r is None else len(r[0]) for r in results]}")
     if errors or any(r is None for r in results) or health["status"] != "ok":
         raise AssertionError(f"server failed: {errors}")
+
+    rows = golden_eval["rows_device"]
+    want = int((rows[:, 0] == 2).sum())        # eval scene 2: 640x480
+    # a solid fill: the JPEG keeps it within 1, and the replay finds the
+    # scene's maps by it
+    frame = np.full((480, 640, 3), 2 * inputs.EVAL_FILL, np.uint8)
+    server = PoseServer(replay, port=0, max_batch=BATCH).start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for ext in ("png", "jpg"):
+                path = os.path.join(tmp, f"scene.{ext}")
+                _write_image(path, frame)
+                with open(path, "rb") as f:
+                    code, reply = post(server.port, f.read())
+                found = len(reply.get("humans", []))
+                print(f"server POST /pose ({codecs()}): {ext.upper()} of "
+                      f"eval scene 2 -> {code}, {found} people (the golden "
+                      f"rows: {want}) {reply.get('error', '')}")
+                if code != 200 or found != want or want < 1:
+                    raise AssertionError(f"{ext} POST: {code} {reply}")
+    finally:
+        server.stop()
 
 
 def check_host_decode(prof, rng, golden_script):
@@ -718,6 +796,246 @@ def check_host_decode(prof, rng, golden_script):
                              "the crowded frame")
 
 
+def make_replay(inputs, golden_eval):
+    """The port's vgg2016 ``PoseEstimator`` on the card (bf16, the device
+    decode) whose ``_forward`` replays the eval scenes' golden maps."""
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    est = PoseEstimator("vgg2016", device="cuda", seed=SEED,
+                        decode_backend="device")
+    inputs.replay_forward(est, {
+        i: (golden_eval[f"heatmaps_{i}"], golden_eval[f"pafs_{i}"])
+        for i in inputs.EVAL_IDS})
+    return est
+
+
+def counted(kernels, fn):
+    """(fn(), {kernel: launches during the call}): the decode kernels'
+    counts set to 0 just before and read just after."""
+    for rec in kernels:
+        rec["wrapper"].launches = 0
+    out = fn()
+    return out, {rec["name"]: rec["wrapper"].launches for rec in kernels}
+
+
+def check_eval_parity(kernels, inputs, replay, golden_eval, tmp):
+    """Phase 10a: ``run_eval`` on the card against the JAX package's
+    rows: at batch 8 through the device decode, then at batch 1 through
+    the native host decode."""
+    from torch_ekpose_tpu_torch.evaluate import run_eval
+
+    image_dir, anno = os.path.join(tmp, "images"), os.path.join(
+        tmp, "annotations.json")
+    inputs.write_eval_images(image_dir, anno,
+                             json.loads(str(golden_eval["annotations"])))
+    results = os.path.join(tmp, "rows.json")
+
+    def run(batch):
+        with contextlib.redirect_stdout(io.StringIO()):   # the AP table
+            return run_eval(image_dir, anno, replay, progress=False,
+                            batch_size=batch, results_json=results)
+
+    replay.decode_backend, replay.batches = "device", 0
+    ap, launches = counted(kernels, lambda: run(BATCH))
+    rows, want = inputs.eval_rows(results), golden_eval["rows_device"]
+    same_shape = rows.shape == want.shape
+    exact = np.r_[0, 1, 4:53:3, 53]       # ids, flags, score
+    coord = np.setdiff1d(np.arange(54), exact)
+    ok = same_shape and np.array_equal(rows[:, exact], want[:, exact])
+    err = float(np.abs(rows[:, coord] - want[:, coord]).max()) \
+        if same_shape and rows.size else float("inf")
+    people = np.bincount(rows[:, 0].astype(int), minlength=13)[1:]
+    print(f"eval parity ({codecs()}), "
+          f"batch {BATCH}, device decode: {len(rows)} rows "
+          f"(golden {len(want)}), people per image {people.tolist()}, ids "
+          f"and flags exact={ok}, max coordinate error {err} px, AP {ap} "
+          f"(golden {float(golden_eval['ap_device'])}), {replay.batches} "
+          f"forwards (3 expected), kernel launches {launches}")
+    if not ok or err > 1e-3 or abs(ap - float(golden_eval["ap_device"])) \
+            > 1e-6 or people.min() < 1 or min(launches.values()) < 1 \
+            or replay.batches != 3:
+        raise AssertionError("run_eval on the card differs from the JAX "
+                             "package's device-decode rows")
+
+    replay.decode_backend, replay.batches = "native", 0
+    ap, launches = counted(kernels, lambda: run(1))
+    rows, want = inputs.eval_rows(results), golden_eval["rows_numpy"]
+    print(f"eval parity, batch 1, native host decode: {len(rows)} rows, "
+          f"equal to the JAX host decode's={np.array_equal(rows, want)}, "
+          f"AP {ap} (golden {float(golden_eval['ap_numpy'])}), "
+          f"{replay.batches} forwards (12 expected), kernel launches "
+          f"{launches}")
+    if not np.array_equal(rows, want) or ap != float(
+            golden_eval["ap_numpy"]) or replay.batches != 12:
+        raise AssertionError("run_eval's host decode on the card differs "
+                             "from the JAX package's")
+
+
+def write_coco_tree(root: str, rng, inputs, n: int = 32):
+    """``root/coco/images/val`` with ``n`` random PNG frames, 640x480 and
+    480x640 in turn (written by the port's ``_write_image``), and
+    ``annotations_val.json`` with one standing person a frame (``val``
+    mode lists only images with a person)."""
+    from torch_ekpose_tpu_torch import constants
+    from torch_ekpose_tpu_torch.evaluate.evaluator import _write_image
+
+    image_dir = os.path.join(root, "coco", "images", "val")
+    os.makedirs(image_dir)
+    images, annotations = [], []
+    for img_id in range(1, n + 1):
+        h, w = (480, 640) if img_id % 2 else (640, 480)
+        name = f"{img_id:012d}.png"
+        _write_image(os.path.join(image_dir, name),
+                     rng.integers(0, 256, (h, w, 3), np.uint8))
+        images.append({"id": img_id, "width": w, "height": h,
+                       "file_name": name})
+        kp = np.zeros((18, 3))
+        kp[:, :2] = np.array([w / 2, h / 2]) + inputs.SKELETON
+        kp[:, 2] = 2
+        coco = kp[list(constants.ORDER_COCO)]
+        annotations.append({
+            "id": img_id, "image_id": img_id, "category_id": 1,
+            "keypoints": coco.reshape(-1).tolist(), "num_keypoints": 17,
+            "iscrowd": 0, "area": 72.0 * 193.0,
+            "bbox": [w / 2 - 36, h / 2 - 103, 72.0, 193.0]})
+    with open(os.path.join(root, "coco", "annotations_val.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return image_dir
+
+
+def check_entry_points(prof, kernels, rng, inputs, tmp):
+    """Phases 10b-d: the eval CLI, run_image and bench_latency with the
+    real model (seeded random weights) on the card."""
+    from torch_ekpose_tpu_torch.cli import bench_latency, run_image
+    from torch_ekpose_tpu_torch.cli import eval as cli_eval
+    from torch_ekpose_tpu_torch.data.coco import COCO
+    from torch_ekpose_tpu_torch.evaluate.evaluator import (
+        _prefetch_read, read_image_bgr)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    image_dir = write_coco_tree(tmp, rng, inputs)
+    times, busy = [], []
+    run_eval = cli_eval.run_eval
+
+    def timed(**kwargs):
+        t0 = time.perf_counter()
+        ap = run_eval(**kwargs)
+        times.append(time.perf_counter() - t0)
+        return ap
+
+    def traced(**kwargs):
+        """``run_eval`` under ``torch.profiler``: the card's busy time is
+        the device time of its kernels and copies (one stream)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            ap = timed(**kwargs)
+            torch.cuda.synchronize()
+        busy.append(sum(
+            e.self_device_time_total for e in trace.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6)
+        return ap
+
+    argv = ["-m", "vgg2016", "-d", "coco", "--data-dir", tmp]
+    cli_eval.run_eval = timed
+    try:
+        for attempt in ("cold", "warm"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                _, launches = counted(kernels, lambda: cli_eval.main(argv))
+            lines = out.getvalue().splitlines()
+            setup = [ln for ln in lines if ln.startswith(">>>>")]
+            ap_line = [ln for ln in lines if ln.startswith("AP@OKS")]
+            print(f"cli.eval ({attempt}, {codecs()}): "
+                  f"{setup[0] if setup else '?'}; "
+                  f"32 PNG frames (640x480 and 480x640) in "
+                  f"{times[-1]:.3f} s = {32 / times[-1]:.2f} images/s for "
+                  f"run_eval (reading, padding, forward, decode, AP); "
+                  f"{ap_line[0] if ap_line else 'no AP line'} (random "
+                  f"weights: no people expected); kernel launches "
+                  f"{launches}; on {prof.card_line()}")
+            if "device" not in setup[0] or "bfloat16" not in setup[0] or \
+                    not ap_line or min(launches.values()) < 1:
+                raise AssertionError("cli.eval did not run the card's "
+                                     "defaults through the decode kernels")
+        coco = COCO(os.path.join(tmp, "coco", "annotations_val.json"))
+        t0 = time.perf_counter()
+        n = sum(1 for _ in _prefetch_read(
+            iter(coco.getImgIds()), image_dir, coco, 368, 8, 16))
+        dt = time.perf_counter() - t0
+        print(f"eval reader alone ({codecs()}): {n} frames read and padded "
+              f"in {dt:.3f} s = {1e3 * dt / n:.2f} ms a frame (one thread)")
+        cli_eval.run_eval = traced
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_eval.main(argv)
+        print(f"cli.eval traced by torch.profiler ({codecs()}): "
+              f"run_eval {times[-1]:.3f} s, the card busy "
+              f"{busy[-1]:.3f} s of it ({100 * busy[-1] / times[-1]:.1f}"
+              f"%, idle {100 - 100 * busy[-1] / times[-1]:.1f}%)")
+    finally:
+        cli_eval.run_eval = run_eval
+
+    src = os.path.join(image_dir, "000000000002.png")
+    dst = os.path.join(tmp, "out", "run_image.png")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        _, launches = counted(kernels, lambda: run_image.main(
+            ["-i", src, "-o", dst]))
+    shape_in = read_image_bgr(src).shape
+    shape_out = read_image_bgr(dst).shape
+    print(f"cli.run_image ({codecs()}): "
+          f"{out.getvalue().strip().splitlines()[-1]}; "
+          f"output PNG {shape_out} for input {shape_in}; kernel launches "
+          f"{launches} (host decode)")
+    if shape_out != shape_in:
+        raise AssertionError("run_image's output has another shape")
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        _, launches = counted(kernels, lambda: bench_latency.main(
+            ["--sizes", "368", "656", "--frames", "20"]))
+    rows = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith("{")]
+    for row in rows:
+        print(f"cli.bench_latency: {json.dumps(row)} (batch 1, device "
+              f"decode, bf16, host clock to torch.cuda.synchronize(), 20 "
+              f"frames; {codecs()}) on {prof.card_line()}")
+    print(f"cli.bench_latency kernel launches {launches}")
+    if [r["size"] for r in rows] != [368, 656] or \
+            min(launches.values()) < 1:
+        raise AssertionError("bench_latency rows or launches missing")
+
+
+def trace_latency(prof, est, rng, reps: int = 10):
+    """Phase 10d: bench_latency's call, ``estimate()`` of one frame with
+    the device decode, traced by ``torch.profiler``: the card's busy
+    share of the host clock's time a frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    backend, est.decode_backend = est.decode_backend, "device"
+    try:
+        for size in (368, 656):
+            frame = rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
+            est.estimate(frame)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as trace:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    est.estimate(frame)
+                    torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / reps
+            busy = sum(
+                e.self_device_time_total for e in trace.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            ) / 1e3 / reps
+            print(f"batch-1 estimate() at {size}x{size} traced ({reps} "
+                  f"frames): {wall:.3f} ms a frame by the host clock, the "
+                  f"card busy {busy:.3f} ms of it ({100 * busy / wall:.1f}%)"
+                  f", on {prof.card_line()}")
+    finally:
+        est.decode_backend = backend
+
+
 def load_script(name: str):
     """``scripts/<name>.py``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -769,8 +1087,15 @@ def main() -> int:
     est, frames = check_main_path(torch, prof, rng, kernels)
     time_decodes(torch, prof, dec, est, frames, golden)
     check_prefix_path(torch, prof, convs, model, conv_frames)
-    check_server(est, rng)
+    golden_eval = np.load(EVAL_GOLDEN)
+    replay = make_replay(inputs, golden_eval)
+    check_server(est, rng, replay, golden_eval, inputs)
     check_host_decode(prof, rng, load_script("make_torch_golden"))
+    with tempfile.TemporaryDirectory() as tmp:
+        check_eval_parity(kernels, inputs, replay, golden_eval, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_entry_points(prof, kernels, rng, inputs, tmp)
+    trace_latency(prof, est, rng)
 
     kernels += convs
     for rec in kernels:

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host-side modules
-(``constants``, ``config``, ``utils/human``, ``decode/oracle``) against
-their originals.
+(``constants``, ``config``, ``utils/human``, ``decode/oracle``,
+``data/coco``, ``evaluate/cocoeval``) against their originals.
 
 The port imports nothing of the JAX package, so it keeps copies; these
 tests hold each copy equal to its original: the code itself (the syntax
@@ -20,17 +20,22 @@ import pytest
 
 from torch_ekpose_tpu import config as jax_config
 from torch_ekpose_tpu import constants as jax_constants
+from torch_ekpose_tpu.data import coco as jax_coco
 from torch_ekpose_tpu.decode import oracle as jax_oracle
+from torch_ekpose_tpu.evaluate import cocoeval as jax_cocoeval
 from torch_ekpose_tpu.ops import resize as jax_resize
 from torch_ekpose_tpu.utils import human as jax_human
 from torch_ekpose_tpu_torch import config as port_config
 from torch_ekpose_tpu_torch import constants as port_constants
+from torch_ekpose_tpu_torch.data import coco as port_coco
 from torch_ekpose_tpu_torch.decode import oracle as port_oracle
+from torch_ekpose_tpu_torch.evaluate import cocoeval as port_cocoeval
 from torch_ekpose_tpu_torch.ops import resize as port_resize
 from torch_ekpose_tpu_torch.utils import human as port_human
 
 PAIRS = [(jax_constants, port_constants), (jax_config, port_config),
-         (jax_human, port_human), (jax_oracle, port_oracle)]
+         (jax_human, port_human), (jax_oracle, port_oracle),
+         (jax_coco, port_coco), (jax_cocoeval, port_cocoeval)]
 
 
 def _body(module, rename=False) -> str:
@@ -43,7 +48,8 @@ def _body(module, rename=False) -> str:
 
 
 @pytest.mark.parametrize("orig,copy", PAIRS,
-                         ids=["constants", "config", "human", "oracle"])
+                         ids=["constants", "config", "human", "oracle",
+                              "coco", "cocoeval"])
 def test_copy_has_the_originals_code(orig, copy):
     assert _body(copy, rename=True) == _body(orig)
 

@@ -6,12 +6,17 @@ port's twins and the CUDA kernels. The CPU parity tests, the GPU tests
 and ``chip_smoke.py`` (which loads this file by path) draw from here at
 the decode path's shapes (NMS ``[8, 19, 46, 54]``, match
 ``[8, 19, 32, 32]``, merge B = 8, K = 32, cap = 96) or smaller, and at
-the small shapes of ``conv_chain``'s sm90 route. It imports only the
+the small shapes of ``conv_chain``'s sm90 route. It also holds the eval
+scenes (``eval_dataset``: solid-fill frames whose fill names their maps,
+written as PNGs by ``write_eval_images``) and the estimators that replay
+their maps (``ReplayMaps``, ``replay_forward``). It imports only the
 port, so it runs on a machine without JAX.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict
 
 import numpy as np
@@ -19,9 +24,11 @@ import numpy as np
 from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
-__all__ = ["NMS_CASES", "NMS_THRESH", "SM90_CHAINS", "chain_arrays",
-           "crowded_maps", "match_scores", "merge_inputs", "nms_case",
-           "nms_maps", "packed_mismatches"]
+__all__ = ["EVAL_IDS", "NMS_CASES", "NMS_THRESH", "ReplayMaps",
+           "SM90_CHAINS", "chain_arrays", "crowded_maps", "eval_dataset",
+           "eval_rows", "match_scores", "merge_inputs", "nms_case",
+           "nms_maps", "packed_mismatches", "replay_forward",
+           "write_eval_images"]
 
 #: a standing person's 18 keypoints around the neck, in pixels at scale 1
 SKELETON = np.array([
@@ -232,3 +239,113 @@ def packed_mismatches(got: np.ndarray, want: np.ndarray, max_peaks: int,
             err = np.max(np.abs(fg - fw) / np.maximum(np.abs(fw), 1e-30))
             problems.append(f"{name}: max relative error {err:.3g} > {rtol}")
     return problems
+
+
+#: the eval scenes (``tests/data/torch_eval_golden.npz``): image ids, each
+#: frame a solid fill of ``EVAL_FILL`` x its id (so a replayed forward
+#: finds its maps in a batch); landscape 640x480, but the portrait
+#: (480x640) ids. At batch 8 that is a full landscape batch, a landscape
+#: remainder of 1 and a portrait one of 3.
+EVAL_IDS = tuple(range(1, 13))
+EVAL_PORTRAIT = (3, 7, 11)
+EVAL_FILL = 20
+
+
+def eval_dataset(rng: np.random.Generator):
+    """(COCO keypoint annotations as a dict, {image id: [P, 18, 3]
+    internal-order keypoints}) of the eval scenes: 1-2 standing people a
+    frame, every keypoint visible and inside it (the dataset of
+    ``tests/test_eval_pipeline.py``, in both orientations)."""
+    images, annotations, people = [], [], {}
+    for img_id in EVAL_IDS:
+        w, h = (480, 640) if img_id in EVAL_PORTRAIT else (640, 480)
+        images.append({"id": img_id, "width": w, "height": h,
+                       "file_name": f"{img_id:012d}.png"})
+        people[img_id] = []
+        for _ in range(int(rng.integers(1, 3))):
+            c = np.array([rng.uniform(150, w - 140),
+                          rng.uniform(160, h - 150)])
+            kp18 = np.zeros((18, 3))
+            kp18[:, :2] = c + SKELETON * rng.uniform(0.7, 1.1)
+            kp18[:, 2] = 2
+            people[img_id].append(kp18)
+            coco = kp18[list(constants.ORDER_COCO)]
+            x0, y0 = coco[:, 0].min(), coco[:, 1].min()
+            bw, bh = coco[:, 0].max() - x0, coco[:, 1].max() - y0
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": img_id,
+                "category_id": 1,
+                "keypoints": [float(v) for v in coco.reshape(-1)],
+                "num_keypoints": 17, "iscrowd": 0, "area": float(bw * bh),
+                "bbox": [float(x0), float(y0), float(bw), float(bh)],
+            })
+    return {"images": images, "annotations": annotations,
+            "categories": [{"id": 1, "name": "person"}]}, people
+
+
+def write_eval_images(image_dir: str, anno: str, annotations: dict) -> None:
+    """Write the eval scenes' frames as PNGs (the port's ``_write_image``)
+    into ``image_dir`` and their ``annotations`` as the file ``anno``."""
+    from torch_ekpose_tpu_torch.evaluate.evaluator import _write_image
+
+    os.makedirs(image_dir, exist_ok=True)
+    for info in annotations["images"]:
+        frame = np.full((info["height"], info["width"], 3),
+                        EVAL_FILL * info["id"], np.uint8)
+        _write_image(os.path.join(image_dir, info["file_name"]), frame)
+    with open(anno, "w") as f:
+        json.dump(annotations, f)
+
+
+def eval_rows(results_json: str) -> np.ndarray:
+    """A results file's rows as [N, 54] float64: image id, category id,
+    the 51 keypoint values, score; in the file's order."""
+    with open(results_json) as f:
+        rows = json.load(f)
+    return np.array([[r["image_id"], r["category_id"], *r["keypoints"],
+                      r["score"]] for r in rows], np.float64).reshape(-1, 54)
+
+
+class ReplayMaps:
+    """An estimator's host-map calls (``get_outputs``,
+    ``get_outputs_batch``) that replay each eval frame's maps, found by
+    its fill; ``maps`` is {image id: (heatmaps, pafs)} at the padded
+    frame's map shape. Duck-typed for either package's ``run_eval``."""
+
+    def __init__(self, maps: dict, config, decode_backend: str = "numpy"):
+        self.maps = maps
+        self.config = config
+        self.decode_backend = decode_backend
+        self.dest_size = 368
+
+    def lookup(self, frames: np.ndarray):
+        """(pafs [B, h, w, 38], heatmaps [B, h, w, 19]) of padded frames."""
+        ids = [int(round(float(f[0, 0, 0]) / EVAL_FILL)) for f in frames]
+        return (np.stack([self.maps[i][1] for i in ids]),
+                np.stack([self.maps[i][0] for i in ids]))
+
+    def get_outputs(self, image: np.ndarray):
+        pafs, heat = self.lookup(image[None])
+        return pafs[0], heat[0], self.dest_size / max(image.shape[:2])
+
+    def get_outputs_batch(self, images: np.ndarray):
+        return self.lookup(images)
+
+
+def replay_forward(estimator, maps: dict) -> None:
+    """Make a port ``PoseEstimator``'s forward replay the eval scenes'
+    ``maps`` ({image id: (heatmaps, pafs)}) for the frames it is given,
+    as float32 NCHW on its device (what the model returns), so its real
+    batched decode, ``estimate_batch_async`` and ``collect_batch`` run on
+    them; ``estimator.batches`` counts the forwards."""
+    import torch
+
+    replay = ReplayMaps(maps, estimator.config)
+    estimator.batches = 0
+
+    def forward(images):
+        estimator.batches += 1
+        return tuple(torch.from_numpy(m).to(estimator.device)
+                     .permute(0, 3, 1, 2) for m in replay.lookup(images))
+
+    estimator._forward = forward

@@ -12,10 +12,13 @@ cuDNN, and the VGG prefix's conv kernels are in ``ops/conv_chain.py``
 and ``ops/block1.py``. The port keeps its own copies of the JAX package's
 ``constants``, ``config``, ``utils/human``, numpy decode
 (``decode/oracle.py``) and C++ assembler (``native/``), which decode one
-image on the host as the JAX package's ``estimate()`` does.
+image on the host as the JAX package's ``estimate()`` does, and of its
+COCO index (``data/coco.py``) and OKS evaluator
+(``evaluate/cocoeval.py``). Images are read and written through cv2,
+else Pillow.
 
 Importing the package loads no CUDA and builds nothing.
 """
 
-__all__ = ["cli", "config", "constants", "decode", "models", "native", "ops",
-           "runtime", "utils"]
+__all__ = ["cli", "config", "constants", "data", "decode", "evaluate",
+           "models", "native", "ops", "runtime", "utils"]

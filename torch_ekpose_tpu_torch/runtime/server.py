@@ -14,7 +14,8 @@ Endpoints:
   responds {"humans": [{"score", "parts": {id: {x, y, score,
   part_name}}}], "latency_ms"} with x/y normalized to the padded frame
   (the reference's BodyPart convention, reference common.py:277-298).
-  Decoding the image needs cv2 or Pillow.
+  The body is decoded by cv2, else Pillow; without either library every
+  post answers 400 with a message that says so.
 - ``GET /healthz`` — {"status": "ok", "model": ..., "device": ...}, the
   device being the estimator's torch device.
 """
@@ -83,12 +84,16 @@ def _decode_image(body: bytes, content_type: str) -> np.ndarray:
             raise ValueError("undecodable image")
         return img
     except ImportError:
-        import io
-
+        pass
+    try:
         from PIL import Image
+    except ImportError:
+        raise ValueError("undecodable image: decoding needs cv2 or Pillow, "
+                         "and neither is installed") from None
+    import io
 
-        rgb = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
-        return rgb[:, :, ::-1].copy()
+    rgb = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    return rgb[:, :, ::-1].copy()
 
 
 class _Request:
