@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path and VGG prefix path on one CUDA
-card.
+"""Drive the PyTorch port's serving path, VGG prefix path and every
+model on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,30 @@ Phases (any failure raises and exits non-zero):
     for each size, and its call, ``estimate()`` with the device decode,
     is traced for the card's busy share; 10b also times the eval reader
     (``_prefetch_read``: read and pad) alone and traces one ``run_eval``
-    of each kind for the card's busy share.
+    of each kind for the card's busy share;
+11. every model name of ``models/factory.py`` (vgg2016 and the seven
+    ds-head models) at full width: ``PoseEstimator(name)``, built with no
+    ``device``, lands on the card with seeded random weights (the
+    reference's init) in bf16, cast as the JAX package's ``cast_params``
+    casts (BN weight and bias bf16-rounded, running statistics float32),
+    and serves the batch of 8 random 368x432 frames through
+    ``estimate_batch``, with the decode kernels' counts set to 0 before
+    and each risen after; the maps are finite and keep cosine > 0.99
+    against float32 with TF32 off; warm ``estimate_batch`` and the model's
+    forward alone, bf16 and float32 (TF32 off), are timed by CUDA events
+    in turns, with TFLOP/s from ``cli.summary``'s GFLOP, and the bf16
+    forward is traced by ``torch.profiler`` for the card's busy time and
+    its kernel count; on weights that make every BN work
+    (``working_state_dict`` of ``tests/torch_port_inputs.py``: random
+    statistics, scales and biases, where the reference's init makes each
+    BN the identity) the card's float32 maps of one frame are
+    held against the port's CPU float32 forward (rtol 1e-4, atol 1e-4 x
+    max|CPU|) and their bf16 cosine is printed; mobilenet_thin's maps
+    with its stage-6 BN set to make peaks (``peaky_head_``) are decoded
+    on the card and by the CPU twins (integer fields exact, float fields
+    within rtol 1e-5, people found); ``cli.eval -m mobilenet_thin`` runs
+    on phase 10's PNG frames with the decode kernels launching; and
+    ``cli.summary``'s table at 368x432 is printed.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -1036,6 +1059,207 @@ def trace_latency(prof, est, rng, reps: int = 10):
         est.decode_backend = backend
 
 
+def model_forward(torch, est, frames):
+    """A call of ``est``'s model alone (no upload, no preprocess) on
+    ``frames``, preprocessed once on the card, in its compute dtype and
+    precision."""
+    from torch_ekpose_tpu_torch.runtime.estimator import (
+        nhwc_to_nchw, precision_mode, preprocess)
+
+    x = nhwc_to_nchw(preprocess(torch.from_numpy(frames).cuda(),
+                                est.preprocess)).to(
+        est.compute_dtype, memory_format=torch.contiguous_format)
+
+    def run():
+        with torch.inference_mode(), precision_mode(est.precision):
+            return est.model(x)
+    return run
+
+
+def trace_forward(torch, fn, reps: int = 5):
+    """(the card's busy ms, kernels launched) per call of ``fn``, by
+    ``torch.profiler``: the device time of its kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in trace.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            sum(e.count for e in events) // reps)
+
+
+def check_cast(torch, est, state) -> None:
+    """bf16 as the JAX package's ``cast_params``: conv weights bf16, BN
+    weight and bias float32 holding bf16-rounded values, BN running
+    statistics float32 and unchanged."""
+    for owner, module in est.model.named_modules():
+        is_bn = isinstance(module, torch.nn.BatchNorm2d)
+        for leaf, got in module.state_dict(keep_vars=False).items():
+            if "." in leaf:
+                continue                       # a child's; checked there
+            want = state[f"{owner}.{leaf}"].to(got.device)
+            if leaf in ("running_mean", "running_var",
+                        "num_batches_tracked"):
+                ok = got.dtype == want.dtype and torch.equal(got, want)
+            elif is_bn:
+                ok = got.dtype == torch.float32 and torch.equal(
+                    got, want.to(torch.bfloat16).float())
+            else:
+                ok = got.dtype == torch.bfloat16 and torch.equal(
+                    got, want.to(torch.bfloat16))
+            if not ok:
+                raise AssertionError(f"{owner}.{leaf}: {got.dtype} not "
+                                     "cast as cast_params casts it")
+
+
+def check_models(torch, prof, kernels, inputs, frames, tmp):
+    """Phase 11: every model name of ``models/factory.py`` at full width
+    on the card, with timings; a ds model's peaky maps decoded on the card
+    against the CPU twins; ``cli.eval -m mobilenet_thin`` on phase 10's
+    PNG frames; ``cli.summary``'s table."""
+    from torch_ekpose_tpu_torch.cli import eval as cli_eval
+    from torch_ekpose_tpu_torch.cli import summary
+    from torch_ekpose_tpu_torch.models.factory import (
+        MODEL_NAMES, get_model, init_model)
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    card = prof.card_line()
+    h, w = HEIGHT // 8, WIDTH // 8
+    for name in MODEL_NAMES:
+        gflop = summary.summarize(name, (HEIGHT, WIDTH))["flops"] / 1e9
+        # seeded random weights (the reference's init), bf16, on the card
+        est = PoseEstimator(name, seed=SEED)
+        if est.device.type != "cuda" or est.compute_dtype != torch.bfloat16:
+            raise AssertionError(f"PoseEstimator({name!r}) on {est.device}")
+        check_cast(torch, est, init_model(
+            name, generator=torch.Generator().manual_seed(SEED),
+            device="cpu").state_dict())
+        est.estimate_batch(frames)             # warm-up: cuDNN search
+        torch.cuda.synchronize()
+        humans, launches = counted(kernels, lambda: est.estimate_batch(frames))
+        if len(humans) != BATCH or min(launches.values()) < 1:
+            raise AssertionError(f"{name}: estimate_batch launched "
+                                 f"{launches}")
+        paf16, heat16 = est.get_outputs_batch(frames)
+        if paf16.shape != (BATCH, h, w, 38) or \
+                heat16.shape != (BATCH, h, w, 19) or \
+                not (np.isfinite(paf16).all() and np.isfinite(heat16).all()):
+            raise AssertionError(f"{name}: maps {paf16.shape} "
+                                 f"{heat16.shape}, or not finite")
+        f32 = PoseEstimator(name, compute_dtype=torch.float32,
+                            precision="highest", seed=SEED)
+        init32 = f32.get_outputs_batch(frames)
+        cos = [cosine(a, b) for a, b in zip((paf16, heat16), init32)]
+        init_spread = float(np.abs(init32[1] - init32[1].mean(0)).max()
+                            / np.abs(init32[1]).max())
+        if min(cos) <= 0.99:
+            raise AssertionError(f"{name}: bf16 forward drifted from f32")
+        ms = prof.turns([lambda: est.estimate_batch(frames),
+                         model_forward(torch, est, frames),
+                         lambda: f32.estimate_batch(frames),
+                         model_forward(torch, f32, frames)], reps=10)
+        busy, n_kernels = trace_forward(torch, model_forward(torch, est,
+                                                             frames))
+        del est, f32
+        # weights that make every BN work (inputs.working_state_dict):
+        # the reference's init makes each BN the identity
+        state = inputs.working_state_dict(get_model(name, device="cpu"),
+                                          SEED)
+        w16 = PoseEstimator(name, state)
+        w32 = PoseEstimator(name, state, compute_dtype=torch.float32,
+                            precision="highest")
+        cpu = PoseEstimator(name, state, device="cpu",
+                            compute_dtype=torch.float32)
+        worst = 0.0
+        for got, want in zip(w32.get_outputs_batch(frames[:1]),
+                             cpu.get_outputs_batch(frames[:1])):
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max(),
+                                       err_msg=f"{name} card vs CPU")
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+        maps32 = w32.get_outputs_batch(frames)
+        work_cos = [cosine(a, b) for a, b in zip(w16.get_outputs_batch(frames),
+                                                 maps32)]
+        spread = float(np.abs(maps32[1] - maps32[1].mean(0)).max()
+                       / np.abs(maps32[1]).max())
+        print(f"model {name}: {gflop:.2f} GFLOP a {HEIGHT}x{WIDTH} frame "
+              f"(cli.summary); seeded init, bf16: estimate_batch launches "
+              f"{launches}, cosine vs float32 (TF32 off) paf {cos[0]:.6f}, "
+              f"heatmap {cos[1]:.6f} (heatmaps vary {init_spread:.3g} of "
+              f"their max over the batch); batch {BATCH}, means of 10 by CUDA "
+              f"events in turns: bf16 estimate_batch {ms[0]:.3f} ms, "
+              f"forward {ms[1]:.3f} ms ({gflop * BATCH / ms[1]:.1f} "
+              f"TFLOP/s; traced: the card busy {busy:.3f} ms, "
+              f"{n_kernels} kernels); float32 (TF32 off) estimate_batch {ms[2]:.3f} ms, "
+              f"forward {ms[3]:.3f} ms ({gflop * BATCH / ms[3]:.1f} "
+              f"TFLOP/s); working weights: card float32 vs CPU float32, one "
+              f"frame, max |diff| / max|CPU| {worst:.3g}, bf16 cosine paf "
+              f"{work_cos[0]:.6f}, heatmap {work_cos[1]:.6f} (not gated; "
+              f"heatmaps vary {spread:.3f} of their max over the batch); "
+              f"on {card}")
+        if name == "mobilenet_thin":
+            check_peaky_decode(torch, kernels, inputs, w16, frames)
+        del w16, w32, cpu
+
+    argv = ["-m", "mobilenet_thin", "-d", "coco", "--data-dir", tmp]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, launches = counted(kernels, lambda: cli_eval.main(argv))
+    lines = out.getvalue().splitlines()
+    setup = [ln for ln in lines if ln.startswith(">>>>")]
+    ap_line = [ln for ln in lines if ln.startswith("AP@OKS")]
+    print(f"cli.eval -m mobilenet_thin on phase 10's 32 PNG frames: "
+          f"{setup[0] if setup else '?'}; "
+          f"{ap_line[0] if ap_line else 'no AP line'}; kernel launches "
+          f"{launches}")
+    if not setup or "device" not in setup[0] or not ap_line or \
+            min(launches.values()) < 1:
+        raise AssertionError("cli.eval -m mobilenet_thin did not run "
+                             "through the decode kernels")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary.main(["--size", f"{HEIGHT}x{WIDTH}"])
+    print("cli.summary (conv and matmul FLOPs by FlopCounterMode):")
+    print(out.getvalue().rstrip())
+
+
+def check_peaky_decode(torch, kernels, inputs, est, frames):
+    """Phase 11's decode check: the stage-6 projections' BN of ds model
+    ``est`` set so its maps hold peaks and people
+    (``inputs.peaky_head_``), those maps decoded once on the card through
+    the decode kernels and once by the CPU twins: integer fields exact,
+    float fields within rtol 1e-5, people found."""
+    from torch_ekpose_tpu_torch.decode import device as decode_device
+    from torch_ekpose_tpu_torch.runtime.estimator import nchw_to_nhwc
+
+    inputs.peaky_head_(est, frames)
+    paf, heat = est._forward(frames)
+    with torch.inference_mode():
+        got, launches = counted(kernels, lambda: est._decode(
+            nchw_to_nhwc(heat), nchw_to_nhwc(paf)).cpu().numpy())
+        want = decode_device.build_packed_decoder(est.config)(
+            nchw_to_nhwc(heat).cpu(), nchw_to_nhwc(paf).cpu()).numpy()
+    cfg = est.config
+    k = cfg.DECODE.max_peaks_per_part
+    problems = inputs.packed_mismatches(got, want, k,
+                                        cfg.DECODE.max_people * 3, rtol=1e-5)
+    people = [len(decode_device.packed_to_humans(row, HEIGHT, WIDTH, cfg))
+              for row in got]
+    peaks = got[:, 18 * k * 3:18 * k * 4].sum(1).astype(int).tolist()
+    print(f"{est.model_name} peaky maps (stage-6 BN set), batch {BATCH}: "
+          f"decode on the card vs the CPU twins: mismatches {problems}, "
+          f"peaks {peaks}, people {people}, kernel launches {launches}")
+    if problems or max(people) < 1 or min(launches.values()) < 1:
+        raise AssertionError("the ds model's decode on the card differs "
+                             "from the CPU twins, or found no people")
+
+
 def load_script(name: str):
     """``scripts/<name>.py``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -1095,7 +1319,8 @@ def main() -> int:
         check_eval_parity(kernels, inputs, replay, golden_eval, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         check_entry_points(prof, kernels, rng, inputs, tmp)
-    trace_latency(prof, est, rng)
+        trace_latency(prof, est, rng)
+        check_models(torch, prof, kernels, inputs, frames, tmp)
 
     kernels += convs
     for rec in kernels:

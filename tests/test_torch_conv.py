@@ -185,9 +185,9 @@ def test_block1_kernels_match_profile_block1_cases(shape, bias, rt, dtype):
 def test_prefix_matches_backbone_on_jax_weights(vgg_model_and_vars):
     """``chain_params`` + ``conv_chain`` over blocks 1-3 (and the other two
     block-1 routes) == ``backbone[:19]`` on the JAX package's weights."""
-    params = jax.device_get(vgg_model_and_vars[1])["params"]
+    variables = jax.device_get(vgg_model_and_vars[1])
     state = {k[len("model0."):]: v
-             for k, v in state_dict_from_jax(params).items()
+             for k, v in state_dict_from_jax(variables).items()
              if k.startswith("model0.")}
     model = VGG19Backbone()
     model.load_state_dict(state, strict=True)

@@ -240,7 +240,7 @@ def jax_variables(vgg_model_and_vars):
 
 def test_get_outputs_matches_jax(jax_variables):
     port = PoseEstimator("vgg2016", state_dict_from_jax(
-        jax_variables["params"]), device="cpu", compute_dtype=torch.float32,
+        jax_variables), device="cpu", compute_dtype=torch.float32,
         dest_size=64)
     ref = JaxEstimator("vgg2016", jax_variables, compute_dtype=jnp.float32,
                        dest_size=64)
@@ -268,7 +268,7 @@ def test_default_estimate_equals_jax(jax_variables, monkeypatch):
     Random weights find none, so both ``get_outputs`` return the crowded
     scene's maps: more peaks a part than the device decode keeps."""
     port = PoseEstimator("vgg2016", state_dict_from_jax(
-        jax_variables["params"]), device="cpu")
+        jax_variables), device="cpu")
     ref = JaxEstimator("vgg2016", jax_variables)
     assert port.decode_backend == ref.decode_backend == "auto"
     heat, pafs = _scene("crowded")

@@ -42,7 +42,7 @@ def jax_vars(vgg_model_and_vars):
 def test_state_dict_from_jax_equals_export(jax_vars):
     """Key for key and bit for bit the JAX package's own torch export, and
     it loads into the port with strict=True."""
-    ours = state_dict_from_jax(jax_vars["params"])
+    ours = state_dict_from_jax(jax_vars)
     ref = export_torch_checkpoint(jax_vars, prefix="")
     assert sorted(ours) == sorted(ref)
     for key, value in ref.items():
@@ -70,7 +70,7 @@ def test_forward_matches_jax_f32(vgg_model_and_vars, jax_vars):
         np.float32)
     _, ref = jmodel.apply(jvars, jnp.asarray(x), train=False)
     model = get_model("vgg2016", device="cpu")
-    model.load_state_dict(state_dict_from_jax(jax_vars["params"]))
+    model.load_state_dict(state_dict_from_jax(jax_vars))
     with torch.inference_mode():
         (paf, heat), got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert len(got) == 12 and got[-2] is paf and got[-1] is heat
@@ -114,7 +114,12 @@ def test_init_model_distributions():
 @pytest.mark.parametrize("name", [n for n in MODEL_NAMES if n != "vgg2016"]
                          + ["quantize", "s2d"])
 def test_unported_options_raise(name):
-    kwargs = {"quantize": {"quantize": True}, "s2d": {"s2d_blocks": 1}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vgg2016" if name in kwargs else name, device="cpu",
-                  **kwargs.get(name, {}))
+    """int8 serving (ROADMAP Queue 1 item 6) is refused for every model
+    name, and s2d_blocks (item 9) for vgg2016."""
+    if name == "s2d":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+            get_model("vgg2016", device="cpu", s2d_blocks=1)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        get_model("vgg2016" if name == "quantize" else name, device="cpu",
+                  quantize=True)

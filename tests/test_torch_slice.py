@@ -42,7 +42,7 @@ FRAMES = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
 @pytest.fixture(scope="module")
 def estimators(vgg_model_and_vars):
     variables = jax.device_get(vgg_model_and_vars[1])
-    port = PoseEstimator("vgg2016", state_dict_from_jax(variables["params"]),
+    port = PoseEstimator("vgg2016", state_dict_from_jax(variables),
                          device="cpu", compute_dtype=torch.float32,
                          dest_size=64)
     ref = JaxEstimator("vgg2016", variables, compute_dtype=jnp.float32,

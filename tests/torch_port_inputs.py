@@ -9,8 +9,9 @@ the decode path's shapes (NMS ``[8, 19, 46, 54]``, match
 the small shapes of ``conv_chain``'s sm90 route. It also holds the eval
 scenes (``eval_dataset``: solid-fill frames whose fill names their maps,
 written as PNGs by ``write_eval_images``) and the estimators that replay
-their maps (``ReplayMaps``, ``replay_forward``). It imports only the
-port, so it runs on a machine without JAX.
+their maps (``ReplayMaps``, ``replay_forward``), and the weights the
+model tests use (``draw_weight``, ``working_state_dict``, ``peaky_head_``).
+It imports only the port, so it runs on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -26,9 +27,9 @@ from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
 __all__ = ["EVAL_IDS", "NMS_CASES", "NMS_THRESH", "ReplayMaps",
            "SM90_CHAINS", "chain_arrays", "crowded_maps", "eval_dataset",
-           "eval_rows", "match_scores", "merge_inputs", "nms_case",
-           "nms_maps", "packed_mismatches", "replay_forward",
-           "write_eval_images"]
+           "draw_weight", "eval_rows", "match_scores", "merge_inputs",
+           "nms_case", "nms_maps", "packed_mismatches", "peaky_head_",
+           "replay_forward", "working_state_dict", "write_eval_images"]
 
 #: a standing person's 18 keypoints around the neck, in pixels at scale 1
 SKELETON = np.array([
@@ -349,3 +350,89 @@ def replay_forward(estimator, maps: dict) -> None:
                      .permute(0, 3, 1, 2) for m in replay.lookup(images))
 
     estimator._forward = forward
+
+
+def draw_weight(rng: np.random.Generator, kind: str, shape,
+                fan: int = 1) -> np.ndarray:
+    """A float32 weight that makes BN and every conv do real work:
+    ``"kernel"`` ~ N(0, 2 / fan) (Kaiming-normal; ``fan`` is the fan-out
+    k*k*O, but the fan-in k*k for a depthwise kernel, whose fan-out scale
+    would shrink the signal C/2 times a layer and leave maps that are the
+    BN biases alone), ``"bias"`` (conv or BN) ~ N(0, 0.1), ``"scale"`` (BN
+    weight) ~ U(0.5, 1.5), ``"mean"`` ~ N(0, 0.1), ``"var"`` ~
+    U(0.5, 1.5)."""
+    if kind == "kernel":
+        draw = rng.normal(0.0, np.sqrt(2.0 / fan), shape)
+    elif kind in ("bias", "mean"):
+        draw = rng.normal(0.0, 0.1, shape)
+    elif kind in ("scale", "var"):
+        draw = rng.uniform(0.5, 1.5, shape)
+    else:
+        raise ValueError(f"unknown weight kind {kind!r}")
+    return draw.astype(np.float32)
+
+
+def working_state_dict(model, seed: int) -> dict:
+    """A ``state_dict`` for the port's ``model`` drawn by
+    :func:`draw_weight` from a seeded generator (``num_batches_tracked``
+    0), as CPU float32 tensors."""
+    import torch
+    from torch import nn
+
+    rng = np.random.default_rng(seed)
+    modules = dict(model.named_modules())
+    kinds = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+             "running_var": "var"}
+    out = {}
+    for key, value in model.state_dict().items():
+        owner, leaf = key.rsplit(".", 1)
+        module = modules[owner]
+        if leaf == "num_batches_tracked":
+            out[key] = torch.zeros((), dtype=torch.int64)
+            continue
+        fan = 1
+        if isinstance(module, nn.Conv2d):
+            kind = "kernel" if leaf == "weight" else "bias"
+            o, _, kh, kw = module.weight.shape
+            depthwise = module.groups > 1 and module.groups == o
+            fan = kh * kw * (1 if depthwise else o)
+        else:
+            kind = kinds[leaf]
+        out[key] = torch.from_numpy(draw_weight(rng, kind, tuple(value.shape),
+                                                fan))
+    return out
+
+
+#: the stage-6 heatmap projection's BN makes each channel ~ N(mean, std^2)
+#: over the frames it was set on; the PAF projection's gives the constant
+#: field (PEAKY_PAF, PEAKY_PAF) for every limb. All exact in bf16.
+PEAKY_HEAT_STD, PEAKY_HEAT_MEAN, PEAKY_PAF = 0.5, 0.125, 0.5
+
+
+def peaky_head_(estimator, frames: np.ndarray) -> None:
+    """Set the stage-6 projections' BN of a ds-head port ``estimator`` so
+    its maps of ``frames`` decode to peaks and people, through weights
+    alone (the forward is the model's): the heatmap BN's running
+    statistics become each channel's mean and variance over ``frames``
+    (so the heatmaps are ~ N(PEAKY_HEAT_MEAN, PEAKY_HEAT_STD^2) noise,
+    whose local maxima over the threshold are peaks), and the PAF BN's
+    weight becomes 0 and its bias PEAKY_PAF, a field along which every
+    limb pointing right and down scores."""
+    import torch
+
+    model = estimator.model
+    heat_bn, paf_bn = model.model6_2[-1].bn, model.model6_1[-1].bn
+    seen = []
+    hook = heat_bn.register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].float()))
+    try:
+        estimator._forward(frames)
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        heat_bn.running_mean.copy_(seen[0].mean((0, 2, 3)))
+        heat_bn.running_var.copy_(seen[0].var((0, 2, 3), unbiased=False))
+        heat_bn.weight.fill_(PEAKY_HEAT_STD)
+        heat_bn.bias.fill_(PEAKY_HEAT_MEAN)
+        paf_bn.weight.fill_(0.0)
+        paf_bn.bias.fill_(PEAKY_PAF)

@@ -22,6 +22,7 @@ import torch
 
 from torch_ekpose_tpu_torch.config import Config
 from torch_ekpose_tpu_torch.decode.api import BACKENDS
+from torch_ekpose_tpu_torch.models.factory import MODEL_NAMES
 from torch_ekpose_tpu_torch.runtime.checkpoint import load_torch_state_dict
 from torch_ekpose_tpu_torch.runtime.estimator import PRECISIONS, PoseEstimator
 
@@ -34,7 +35,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 
 def add_model_args(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("-m", "--model", default="vgg2016", help="model name")
+    parser.add_argument("-m", "--model", default="vgg2016",
+                        choices=MODEL_NAMES, help="model name")
     parser.add_argument("-c", "--ckpt", default=None,
                         help="reference-format .pth/.pt checkpoint "
                         "(``module.`` prefixes are stripped)")
@@ -62,9 +64,10 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 
 def load_variables(model_name: str, ckpt: Optional[str]):
-    """The ``state_dict`` of ``ckpt`` (a reference ``.pth``/``.pt``), or
-    None, which makes :class:`PoseEstimator` draw random weights from
-    ``--seed``."""
+    """The ``state_dict`` of ``ckpt`` (a reference ``.pth``/``.pt``,
+    without the parameters the reference builds for ``model_name`` but
+    never uses), or None, which makes :class:`PoseEstimator` draw random
+    weights from ``--seed``."""
     if ckpt is None:
         print("WARNING: no checkpoint given; using random initialization")
         return None
@@ -74,7 +77,7 @@ def load_variables(model_name: str, ckpt: Optional[str]):
             "checkpoints only (the flax .msgpack reader is not ported; the "
             "JAX package's runtime.export_torch_checkpoint writes a .pth)")
     print(f"INFO: loading reference checkpoint {ckpt} for {model_name}")
-    return load_torch_state_dict(ckpt)
+    return load_torch_state_dict(ckpt, model_name)
 
 
 def resolve_dtype(args) -> None:

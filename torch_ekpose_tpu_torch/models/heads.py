@@ -1,12 +1,14 @@
-"""The 6-stage, 2-branch CPM head and the OpenPose network (vgg flavor).
+"""The 6-stage, 2-branch CPM head and the OpenPose network.
 
 Counterpart of the JAX package's ``models/heads.py`` (reference
-lib/network/vgg2016.py:37-105): stage 1 reads the backbone features;
-stages 2..6 read ``concat(paf_{s-1}, heatmap_{s-1}, features)``; each
-stage has an L1 branch (38 PAF channels) and an L2 branch (19 heatmap
-channels). The branches are attributes ``model{s}_{b}`` of the network
-itself, as in the reference, so its ``state_dict`` loads with
-``strict=True``.
+lib/network/vgg2016.py:37-105, mobilenet.py:100-134): stage 1 reads the
+backbone features; stages 2..6 read ``concat(paf_{s-1}, heatmap_{s-1},
+features)``; each stage has an L1 branch (38 PAF channels) and an L2
+branch (19 heatmap channels). The branches are attributes
+``model{s}_{b}`` of the network itself, as in the reference, so its
+``state_dict`` loads with ``strict=True``. Two branch flavors: ``"vgg"``
+(plain convs, vgg2016) and ``"ds"`` (five ``DSConv``s with BN, every
+other backbone).
 
 The forward contract is the reference's:
 ``((paf_6, heatmap_6), [paf_1, ht_1, ..., paf_6, ht_6])``, NCHW.
@@ -14,15 +16,15 @@ The forward contract is the reference's:
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from torch_ekpose_tpu_torch import constants
-from torch_ekpose_tpu_torch.models.layers import conv_relu
+from torch_ekpose_tpu_torch.models.layers import DSConv, conv_relu
 
-__all__ = ["CpmHead", "OpenPose", "VggBranch"]
+__all__ = ["BRANCHES", "CpmHead", "DSBranch", "OpenPose", "VggBranch"]
 
 
 class VggBranch(nn.Sequential):
@@ -44,23 +46,60 @@ class VggBranch(nn.Sequential):
         layers.append(nn.Conv2d(in_ch, out_ch, 1, device=device))
         super().__init__(*layers)
 
+    def final(self) -> nn.Conv2d:
+        """The output projection (initialized N(0, 0.01))."""
+        return self[-1]
+
+
+class DSBranch(nn.Sequential):
+    """One depthwise-separable CPM branch (reference mobilenet.py:100-134):
+    3x(3x3, d2(128)), 1x1 to d2(512) at stage 1 or d2(128) at stages 2-6,
+    then a 1x1 to ``out_ch`` with no ReLU. ``width`` is d2, the head's
+    width multiplier; a 1x1 ``DSConv`` has a 1x1 depthwise conv too."""
+
+    def __init__(self, in_ch: int, out_ch: int, first_stage: bool,
+                 width: Callable[[int], int], device=None):
+        mid = width(512) if first_stage else width(128)
+        plan = [(3, width(128))] * 3 + [(1, mid)]
+        layers = []
+        for kernel, feats in plan:
+            layers.append(DSConv(in_ch, feats, kernel, device=device))
+            in_ch = feats
+        layers.append(DSConv(in_ch, out_ch, 1, relu=False, device=device))
+        super().__init__(*layers)
+
+    def final(self) -> nn.Conv2d:
+        """The output projection's pointwise conv (initialized
+        N(0, 0.01))."""
+        return self[-1].pointwise
+
+
+#: the branch flavors of :class:`CpmHead`
+BRANCHES = {"vgg": VggBranch, "ds": DSBranch}
+
 
 class CpmHead(nn.Module):
     """Six refinement stages, two branches each, registered as
-    ``model{stage}_{branch}``."""
+    ``model{stage}_{branch}``. ``branch`` is ``"vgg"`` or ``"ds"``;
+    ``width`` is the ds head's width multiplier (``conv_width2``)."""
 
     num_stages = 6
 
-    def __init__(self, in_ch: int = 128, device=None):
+    def __init__(self, in_ch: int = 128, branch: str = "vgg",
+                 width: Optional[Callable[[int], int]] = None, device=None):
         super().__init__()
+        if branch not in BRANCHES:
+            raise ValueError(f"unknown branch flavor {branch!r}")
+        extra = {} if branch == "vgg" else {"width": width}
         paf_ch = constants.NUM_PAF_CHANNELS
         ht_ch = constants.NUM_HEATMAP_CHANNELS
         for stage in range(1, self.num_stages + 1):
             stage_in = in_ch if stage == 1 else paf_ch + ht_ch + in_ch
-            for branch, out_ch in ((1, paf_ch), (2, ht_ch)):
+            for b, out_ch in ((1, paf_ch), (2, ht_ch)):
                 self.add_module(
-                    f"model{stage}_{branch}",
-                    VggBranch(stage_in, out_ch, stage == 1, device),
+                    f"model{stage}_{b}",
+                    BRANCHES[branch](stage_in, out_ch, stage == 1,
+                                     device=device, **extra),
                 )
 
     def head(self, features: torch.Tensor) -> List[torch.Tensor]:
@@ -86,8 +125,9 @@ class OpenPose(CpmHead):
     ``((paf_last, heatmap_last), saved_for_loss)``.
     """
 
-    def __init__(self, backbone: nn.Module, device=None):
-        super().__init__(backbone.out_channels, device)
+    def __init__(self, backbone: nn.Module, branch: str = "vgg",
+                 width: Optional[Callable[[int], int]] = None, device=None):
+        super().__init__(backbone.out_channels, branch, width, device)
         self.model0 = backbone
 
     def forward(

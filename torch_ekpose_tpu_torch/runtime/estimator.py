@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``runtime/estimator.py`` (reference
 lib/evaluate/estimator.py). A batch of uint8 BGR frames goes to the
-device, is preprocessed there, runs the vgg2016 forward in the compute
-dtype (cuDNN convs, NCHW) and the batched decode
+device, is preprocessed there, runs the model's forward (any of the eight
+names of ``models/factory.py``) in the compute dtype (cuDNN convs, NCHW)
+and the batched decode
 (``decode/device.py``); only the packed ``[B, L]`` result comes back, as
 one device->host copy per batch. One image of any size goes through
 ``estimate``, which routes as the JAX package's does: the maps come back
@@ -28,7 +29,8 @@ from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.config import Config, cfg as default_cfg
 from torch_ekpose_tpu_torch.decode import api as decode_api
 from torch_ekpose_tpu_torch.decode import device as decode_device
-from torch_ekpose_tpu_torch.models.factory import get_model, init_model
+from torch_ekpose_tpu_torch.models.factory import (
+    cast_params, get_model, init_model)
 from torch_ekpose_tpu_torch.ops.resize import resize_image_np
 from torch_ekpose_tpu_torch.utils.human import Human
 
@@ -130,7 +132,8 @@ class PoseEstimator:
     """Owns a model + weights on one device and serves pose inference.
 
     ``state_dict=None`` initializes random weights from ``seed``.
-    Parameters are cast to ``compute_dtype`` once. ``device`` is the card
+    Parameters are cast to ``compute_dtype`` once, as the JAX package's
+    ``cast_params`` does (BN running statistics stay float32). ``device`` is the card
     unless the caller asks for another. ``decode_backend`` is one of
     ``decode/api.py``'s backends and decides how :meth:`estimate` decodes;
     the batched calls always decode on the device. Options the port does
@@ -154,7 +157,7 @@ class PoseEstimator:
     ):
         if compute_dtype in ("int8", "int8_static"):
             raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP Queue 1 item 9)"
+                "int8 serving is not ported yet (ROADMAP Queue 1 item 6)"
             )
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
@@ -188,7 +191,7 @@ class PoseEstimator:
             )
             model.load_state_dict(state_dict, strict=True)
         # cast once: halves weight traffic and drops per-call casts
-        self.model = model.to(dtype=compute_dtype).eval()
+        self.model = cast_params(model, compute_dtype).eval()
         self._decode = decode_device.build_packed_decoder(self.config)
 
     # -- device program ----------------------------------------------------
