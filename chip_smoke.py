@@ -132,7 +132,36 @@ Phases (any failure raises and exits non-zero):
     on the card and by the CPU twins (integer fields exact, float fields
     within rtol 1e-5, people found); ``cli.eval -m mobilenet_thin`` runs
     on phase 10's PNG frames with the decode kernels launching; and
-    ``cli.summary``'s table at 368x432 is printed.
+    ``cli.summary``'s table at 368x432 is printed;
+12. training (no kernel of its own: training runs no Pallas kernel in the
+    JAX package): (a) the port's train step on the card against the
+    same step on the CPU, on the same seeded weights and rendered
+    batches (64x64, batch 4, device targets, 2 steps at lr 1e-4, TF32
+    off), vgg2016 and mobilenetV2_small (BN): in float64 every loss
+    series within rtol 5e-4, the parameters >= 99.9% within 1e-5, mean
+    |diff| < 2e-6, max <= 4 lr + 1e-6 and the running statistics within
+    rtol 1e-4 (atol 1e-6); in float32 step 1's series and statistics,
+    each step-1 gradient within 1e-3 of the CPU's float64 one (median
+    over parameters of max|diff| / max|g|) and vgg2016's envelope after
+    step 1 (after step 2, and mobilenetV2_small's, printed: a gradient
+    near zero rounds to either sign, and Adam's first step moves it 2 lr
+    apart); the bf16 step's first loss within 1% of the card's float32
+    one; (b) ``cli.train.main`` at full width: vgg2016, batch 16,
+    368x368, 2 epochs of 512 rendered 640x480 scenes (8 val; 32 steps an
+    epoch, so the loader's start is amortized), float32 then bf16, with
+    ``epoch_0.ckpt`` and ``epoch_1.ckpt`` written and finite losses;
+    the train loader alone over a cold and a warm epoch (first batch,
+    then images/s); per run the second epoch's steps/s and images/s,
+    TFLOP/s (3x ``cli.summary``'s forward GFLOP), peak
+    ``max_memory_allocated``, DataTime against BatchTime, and the card's
+    busy share (the union of its kernels', copies' and sets' intervals
+    over the wall time) and the step's time over a ``torch.profiler``
+    trace of 4 steps on batches made beforehand; (c)
+    ``epoch_0.ckpt`` restored into a fresh ``Trainer`` gives its
+    parameters, BN statistics and Adam state bitwise; (d) ``cli.train -m
+    mobilenet_thin --dtype bfloat16`` for one epoch, every BN's running
+    variance moved; (e) the first batch's loss with ``--targets host``
+    and ``--targets device`` within rtol 1e-5.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -1260,6 +1289,402 @@ def check_peaky_decode(torch, kernels, inputs, est, frames):
                              "from the CPU twins, or found no people")
 
 
+#: phase 12's Adam rate (the reference's) and the lockstep's shapes
+TRAIN_LR, TRAIN_WD = 1e-4, 5e-4
+#: phase 12(b)'s training set: 32 steps of 16 an epoch, long enough that
+#: the loader's start (one whole batch a worker) does not set the rate
+TRAIN_IMAGES = 512
+PARITY_BATCH, PARITY_SIZE, PARITY_STEPS = 4, 64, 2
+
+
+def step_states(torch, inputs, name: str, device: str, dtype, batches,
+                compute_dtype=None):
+    """The port's train step (device targets, TF32 off) from ``name``'s
+    seeded init on ``device`` in ``dtype`` (with ``compute_dtype``, the
+    mixed-precision step on float32 parameters): ([logs of each step],
+    [state_dict after each step], {parameter: step 1's gradient}, all
+    float64 numpy, and the start state)."""
+    from torch_ekpose_tpu_torch.models.factory import get_model, init_model
+    from torch_ekpose_tpu_torch.training.train_step import (
+        make_optimizer, make_train_step)
+
+    start = init_model(name, generator=torch.Generator().manual_seed(SEED),
+                       device="cpu").state_dict()
+    model = get_model(name, device=device)
+    model.load_state_dict(start)
+    model.to(dtype)
+    optimizer = make_optimizer(model, TRAIN_LR, TRAIN_WD)
+    step = make_train_step(model, optimizer, targets="device",
+                           grid=(PARITY_SIZE // 8,) * 2,
+                           compute_dtype=compute_dtype)
+    logs, states, grads = [], [], None
+    for images, kpts in batches:
+        out = step(torch.from_numpy(images).to(device, dtype),
+                   torch.from_numpy(kpts).to(device))
+        logs.append({k: float(v) for k, v in out.items()})
+        # copies: a float64 CPU tensor's .double().numpy() is a view
+        states.append({k: v.detach().to("cpu", torch.float64, copy=True)
+                       .numpy() for k, v in model.state_dict().items()})
+        if grads is None:
+            grads = {n: p.grad.detach().to("cpu", torch.float64, copy=True)
+                     .numpy() for n, p in model.named_parameters()}
+    return (logs, states, grads,
+            {k: v.double().numpy() for k, v in start.items()})
+
+
+def loss_mismatches(got, want, rtol: float = 5e-4) -> list:
+    """(step, series) of every logged series ``got`` misses by > rtol."""
+    return [(i, k) for i, (g, w) in enumerate(zip(got, want))
+            for k in w if not np.isclose(g[k], w[k], rtol=rtol, atol=0)]
+
+
+def grad_error(got: dict, want: dict) -> float:
+    """The median over parameters of max|got - want| / max|want|."""
+    return float(np.median([np.abs(got[k] - w).max() / np.abs(w).max()
+                            for k, w in want.items()]))
+
+
+#: the most the card's float32 gradient may miss the CPU's float64 one
+#: by (:func:`grad_error`); measured 9.6e-07 (vgg2016) and 2.9e-05
+#: (mobilenetV2_small), so a wrong backward (TF32 or another rounding
+#: left on) would exceed it
+GRAD_TOL = 1e-3
+
+
+def check_step_parity(torch, inputs) -> None:
+    """Phase 12(a): the port's train step on the card against the same
+    step on the CPU, same seeded weights and batches (64x64, batch 4,
+    device targets, 2 steps at lr 1e-4, TF32 off). In float64 (the
+    predictions still rounded to float32 by ``cpm_loss``) every series
+    within rtol 5e-4, the parameters within Adam's sign-flip envelope
+    (``inputs.update_envelope``) and BN's statistics within rtol 1e-4.
+    In float32 a gradient near zero is rounded to either sign, and step
+    1's Adam (~lr * sign(g)) then moves that element 2 lr apart, so
+    float32 is held on step 1's series and BN statistics, on each step-1
+    gradient's error against the CPU's float64 one (<= ``GRAD_TOL``, the
+    backward and so Adam's input), and for vgg2016 (no BN) on the
+    envelope after step 1 (a train-mode BN's float32 gradient is
+    ill-conditioned on every stack, so mobilenetV2_small's step-1
+    envelope is printed). The bf16 step (``compute_dtype``) on the card:
+    its first loss within 1% of the card's float32 one, every loss
+    finite."""
+    rng = np.random.default_rng(SEED)
+    batches = [inputs.train_batch(rng, PARITY_BATCH, PARITY_SIZE)
+               for _ in range(PARITY_STEPS)]
+    for name in ("vgg2016", "mobilenetV2_small"):
+        runs = {}
+        for device, dtype in (("cuda", torch.float64), ("cpu", torch.float64),
+                              ("cuda", torch.float32), ("cpu", torch.float32)):
+            t0 = time.perf_counter()
+            runs[device, dtype] = step_states(torch, inputs, name, device,
+                                              dtype, batches)
+            runs[device, dtype] += (time.perf_counter() - t0,)
+        start = runs["cpu", torch.float64][3]
+        for dtype in (torch.float64, torch.float32):
+            card_logs, card, card_grads, _, t_card = runs["cuda", dtype]
+            cpu_logs, cpu, cpu_grads, _, t_cpu = runs["cpu", dtype]
+            envs = [inputs.update_envelope(card[i], cpu[i], start, TRAIN_LR,
+                                           i + 1)
+                    for i in range(PARITY_STEPS)]
+            gated = PARITY_STEPS if dtype == torch.float64 else 1
+            bad = loss_mismatches(card_logs[:gated], cpu_logs[:gated])
+            stats = inputs.stats_mismatches(card[gated - 1], cpu[gated - 1])
+            worst = [max(abs(c[k] - w[k]) / abs(w[k]) for k in w)
+                     for c, w in zip(card_logs, cpu_logs)]
+            print(f"train step card vs CPU, {name} {str(dtype)[6:]}: "
+                  f"losses {[x['Loss'] for x in card_logs]} / "
+                  f"{[x['Loss'] for x in cpu_logs]}, worst series by step "
+                  f"{[f'{w:.2e}' for w in worst]}; params within 1e-5 "
+                  f"after steps 1, 2: "
+                  f"{[round(e['within_1e-5'], 6) for e in envs]}, mean "
+                  f"{[f'{e["mean"]:.2e}' for e in envs]}, max "
+                  f"{[f'{e["max"]:.2e}' for e in envs]}, median update "
+                  f"{envs[-1]['median_update']:.2e}; BN stats off after "
+                  f"step {gated}: {len(stats)} (card {t_card:.1f} s, CPU "
+                  f"{t_cpu:.1f} s)")
+            env = envs[-1]
+            grad_err = 0.0
+            if dtype == torch.float32:
+                ref = runs["cpu", torch.float64][2]
+                grad_err = grad_error(card_grads, ref)
+                print(f"  float32 gradient error against the CPU's float64 "
+                      f"(median over parameters of max|diff| / max|g|): "
+                      f"card {grad_err:.2e} (gate {GRAD_TOL:.0e}), CPU "
+                      f"{grad_error(cpu_grads, ref):.2e}")
+                env = envs[0] if name == "vgg2016" else {"ok": True}
+            if bad or stats or not env["ok"] or grad_err > GRAD_TOL:
+                raise AssertionError(
+                    f"{name} {dtype}: the card's train step left the CPU's: "
+                    f"series {bad[:4]}, BN stats {stats[:4]}, envelope "
+                    f"{env}, gradient error {grad_err:.2e}")
+        bf16_logs, *_ = step_states(torch, inputs, name, "cuda",
+                                            torch.float32, batches,
+                                            compute_dtype=torch.bfloat16)
+        f32_loss = runs["cuda", torch.float32][0][0]["Loss"]
+        losses = [x["Loss"] for x in bf16_logs]
+        rel = abs(losses[0] - f32_loss) / f32_loss
+        print(f"bf16 train step on the card, {name}: losses {losses}, "
+              f"the first {rel:.2e} off the card's float32 (gate 1e-2)")
+        if not np.isfinite(losses).all() or rel > 1e-2:
+            raise AssertionError(f"{name} bf16 step: losses {losses} "
+                                 f"against float32 {f32_loss}")
+
+
+def scalars(log_dir: str) -> dict:
+    """{name: {step: value}} of the trainer's ``metrics.jsonl``."""
+    (path,) = [os.path.join(d, "metrics.jsonl")
+               for d, _, files in os.walk(log_dir)
+               if "metrics.jsonl" in files]
+    out: dict = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            out.setdefault(rec["name"], {})[rec["step"]] = rec["value"]
+    return out
+
+
+#: the chrome-trace categories of the card's own work; a GPU
+#: annotation span (``gpu_user_annotation``, e.g. Adam's step) covers
+#: kernels already counted, so it is left out
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy(trace, tmp: str) -> float:
+    """Seconds the card spent on kernels, copies and sets in a
+    ``torch.profiler`` trace: the union of their intervals, so work that
+    overlaps counts once."""
+    path = os.path.join(tmp, "busy_trace.json")
+    trace.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in DEVICE_WORK and e.get("ph") == "X")
+    if not spans:
+        raise AssertionError("the trace holds no kernel of the card")
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy / 1e6
+
+
+def busy_share(torch, trainer, loader, tmp: str, steps: int = 4):
+    """(the card's busy share, seconds a step) over ``steps`` train steps
+    by ``torch.profiler`` (:func:`device_busy` over the wall time), on
+    batches the loader made beforehand (upload included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = []
+    for batch in loader:
+        batches.append(batch)
+        if len(batches) == 2:
+            break
+    trainer.train_step(*trainer._upload(batches[0]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            trainer.train_step(*trainer._upload(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_busy(trace, tmp) / wall, wall / steps
+
+
+def loader_rate(data: str, size: int, batch: int, workers: int = 8):
+    """Phase 12(b): ``cli.train``'s train loader alone (its defaults: 8
+    spawned workers, device targets; no card work beside it), over a cold
+    epoch (workers spawned) and a warm one: [(seconds to the first batch,
+    images/s over the rest)] for each."""
+    from torch_ekpose_tpu_torch.data import transforms as T
+    from torch_ekpose_tpu_torch.data.dataset import BatchLoader, CocoKeypoints
+
+    loader = BatchLoader(
+        CocoKeypoints(os.path.join(data, "synth", "images", "train"),
+                      os.path.join(data, "synth", "annotations_train.json"),
+                      preprocess=T.TRAIN_PREPROCESS(size),
+                      image_transform=T.image_transform_train,
+                      target_mode="device", input_size=size,
+                      n_images=TRAIN_IMAGES),
+        batch, num_workers=workers, mode="process")
+    out = []
+    try:
+        for _ in ("cold", "warm"):
+            t0 = time.perf_counter()
+            arrivals = [time.perf_counter() - t0 for _ in loader]
+            out.append((arrivals[0], (len(arrivals) - 1) * batch
+                        / (arrivals[-1] - arrivals[0])))
+    finally:
+        loader.close()
+    return out
+
+
+def run_train_cli(torch, argv, log_dir: str):
+    """``cli.train.main(argv)`` with the peak memory reset before it:
+    (the trainer, its scalars, peak ``max_memory_allocated`` bytes)."""
+    from torch_ekpose_tpu_torch.cli import train as cli_train
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = cli_train.main(argv + ["--logdir", log_dir])
+    torch.cuda.synchronize()
+    return trainer, scalars(log_dir), torch.cuda.max_memory_allocated()
+
+
+def check_training(torch, inputs, tmp: str) -> None:
+    """Phase 12: the training path on the card. (a) the train step
+    against the CPU (:func:`check_step_parity`); (b) ``cli.train.main``
+    at full width, vgg2016 at batch 16, 368x368, 2 epochs of
+    ``TRAIN_IMAGES`` rendered 640x480 scenes (8 val) in float32 and in
+    bf16, with the second
+    epoch's rates, TFLOP/s (3x ``cli.summary``'s forward GFLOP), peak
+    memory, DataTime against BatchTime, and the time and busy share of 4
+    traced steps on batches made beforehand; (c) ``epoch_0.ckpt``
+    restored into a fresh ``Trainer`` gives the saved parameters and
+    optimizer state bitwise; (d)
+    ``-m mobilenet_thin --dtype bfloat16`` for one epoch (BN training on
+    the card); (e) ``--targets host`` and ``--targets device`` give the
+    first batch the same loss (rtol 1e-5)."""
+    from torch_ekpose_tpu_torch.cli import summary
+    from torch_ekpose_tpu_torch.config import get_default_config
+    from torch_ekpose_tpu_torch.data import transforms as T
+    from torch_ekpose_tpu_torch.data.dataset import (
+        BatchLoader, CocoKeypoints)
+    from torch_ekpose_tpu_torch.data.synthetic_coco import write_coco_dataset
+    from torch_ekpose_tpu_torch.training import Trainer, make_eval_step
+    from torch_ekpose_tpu_torch.training.trainer import read_checkpoint
+
+    check_step_parity(torch, inputs)
+
+    data = os.path.join(tmp, "train_data")
+    write_coco_dataset(os.path.join(data, "synth"), TRAIN_IMAGES, 480, 640,
+                       mode="train", seed=1)
+    write_coco_dataset(os.path.join(data, "synth"), 8, 480, 640,
+                       mode="val", seed=2, first_img_id=5000)
+    batch, size = 16, 368
+    (cold, warm) = loader_rate(data, size, batch)
+    print(f"cli.train's loader alone ({TRAIN_IMAGES} scenes, batch {batch}, "
+          f"8 spawned workers, {size}x{size}): cold epoch first batch "
+          f"{cold[0]:.2f} s, then {cold[1]:.2f} images/s; warm epoch first "
+          f"batch {warm[0]:.2f} s, then {warm[1]:.2f} images/s")
+    gflop = summary.summarize("vgg2016", size)["flops"] / 1e9
+    common = ["-d", "synth", "--data-dir", data, "-b", str(batch),
+              "--square_size", str(size)]
+    for dtype in ("float32", "bfloat16"):
+        out = os.path.join(tmp, f"ckpt_{dtype}")
+        t0 = time.perf_counter()
+        trainer, sc, peak = run_train_cli(
+            torch, common + ["-m", "vgg2016", "-e", "2", "--save_epoch", "1",
+                             "--n-images", str(TRAIN_IMAGES), "--dtype",
+                             dtype, "--out-dir", out],
+            os.path.join(tmp, f"logs_{dtype}"))
+        seconds = time.perf_counter() - t0
+        for e in (0, 1):
+            if not os.path.exists(os.path.join(out, f"epoch_{e}.ckpt")):
+                raise AssertionError(f"{dtype}: no epoch_{e}.ckpt")
+        losses = trainer.train_curve["train"] + trainer.train_curve["val"]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{dtype}: losses {losses}")
+        step_s = sc["BatchTime/train"][1]
+        data_s = sc["DataTime/train"][1]
+        loader = BatchLoader(
+            CocoKeypoints(os.path.join(data, "synth", "images", "train"),
+                          os.path.join(data, "synth",
+                                       "annotations_train.json"),
+                          preprocess=T.TRAIN_PREPROCESS(size),
+                          image_transform=T.image_transform_train,
+                          target_mode="device", input_size=size,
+                          n_images=32),
+            batch, num_workers=0)
+        busy, alone_s = busy_share(torch, trainer, loader, tmp)
+        tflop = 3 * gflop * batch / 1e3
+        print(f"cli.train vgg2016 {dtype} b{batch} {size}x{size} (the "
+              f"second epoch, {TRAIN_IMAGES // batch} steps): "
+              f"{1 / step_s:.3f} steps/s, {batch / step_s:.2f} images/s, "
+              f"{tflop / step_s:.1f} TFLOP/s (3 x {gflop:.2f} GFLOP an "
+              f"image), BatchTime {step_s * 1e3:.1f} ms, DataTime "
+              f"{data_s * 1e3:.1f} ms, peak max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; 4 traced steps on batches made "
+              f"beforehand: {alone_s * 1e3:.1f} ms a step, "
+              f"{batch / alone_s:.2f} images/s, {tflop / alone_s:.1f} "
+              f"TFLOP/s, the card busy {100 * busy:.1f}%; train "
+              f"{[round(x, 2) for x in trainer.train_curve['train']]}, val "
+              f"{[round(x, 2) for x in trainer.train_curve['val']]}; "
+              f"{seconds:.1f} s in all")
+        if dtype == "float32":
+            cfg = get_default_config()
+            cfg.TRAIN.square_size = size
+            fresh = Trainer("vgg2016", config=cfg,
+                            out_dir=os.path.join(tmp, "fresh"),
+                            log_dir=os.path.join(tmp, "logs_fresh"))
+            path = os.path.join(out, "epoch_0.ckpt")
+            fresh.restore(path)
+            saved = read_checkpoint(path, "cuda")
+            for key, want in saved["model"].items():
+                if not torch.equal(fresh.model.state_dict()[key], want):
+                    raise AssertionError(f"restore: {key} differs")
+            opt = fresh.optimizer.state_dict()["state"]
+            for idx, entry in saved["optimizer"]["state"].items():
+                for k, want in entry.items():
+                    if not torch.equal(opt[idx][k].to(want.device), want):
+                        raise AssertionError(f"restore: Adam {idx} {k}")
+            print(f"restore of epoch_0.ckpt: {len(saved['model'])} tensors "
+                  f"and {len(saved['optimizer']['state'])} Adam states "
+                  f"bitwise, epoch {fresh.epoch}, step {fresh.step}")
+            targets_agree(torch, trainer, data, size, make_eval_step)
+        del trainer
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trainer, sc, peak = run_train_cli(
+        torch, common + ["-m", "mobilenet_thin", "-e", "1", "--save_epoch",
+                         "1", "--n-images", "32", "--dtype", "bfloat16",
+                         "--out-dir",
+                         os.path.join(tmp, "ckpt_thin")],
+        os.path.join(tmp, "logs_thin"))
+    stats = [v for k, v in trainer.model.state_dict().items()
+             if k.endswith("running_var")]
+    moved = sum(not torch.equal(v, torch.ones_like(v)) for v in stats)
+    losses = trainer.train_curve["train"] + trainer.train_curve["val"]
+    if not np.isfinite(losses).all() or moved != len(stats):
+        raise AssertionError(f"mobilenet_thin bf16: losses {losses}, "
+                             f"{moved} of {len(stats)} BN moved")
+    print(f"cli.train mobilenet_thin bfloat16, one epoch: train "
+          f"{losses[0]:.2f}, val {losses[1]:.2f}, BatchTime "
+          f"{sc['BatchTime/train'][0] * 1e3:.1f} ms, all {len(stats)} BN "
+          f"running variances moved, peak {peak / 2**30:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def targets_agree(torch, trainer, data: str, size: int,
+                  make_eval_step) -> None:
+    """Phase 12(e): the first batch's loss with host-rasterized targets
+    (``gen_targets_np`` in the dataset) and with the card's
+    (``gen_targets_torch``) on the trained model, within rtol 1e-5."""
+    from torch_ekpose_tpu_torch.data import transforms as T
+    from torch_ekpose_tpu_torch.data.dataset import CocoKeypoints
+
+    losses = {}
+    for mode in ("host", "device"):
+        ds = CocoKeypoints(
+            os.path.join(data, "synth", "images", "train"),
+            os.path.join(data, "synth", "annotations_train.json"),
+            preprocess=T.TRAIN_PREPROCESS(size),
+            image_transform=T.image_transform_train, target_mode=mode,
+            input_size=size, n_images=32)
+        items = [ds[i] for i in range(4)]
+        batch = [np.stack([it[f] for it in items])
+                 for f in range(len(items[0]))]
+        step = make_eval_step(trainer.model, targets=mode,
+                              grid=(size // 8,) * 2)
+        losses[mode] = float(step(*trainer._upload(batch))["Loss"])
+    rel = abs(losses["host"] - losses["device"]) / abs(losses["host"])
+    print(f"first batch, --targets host vs device: {losses['host']:.4f} / "
+          f"{losses['device']:.4f} (rel {rel:.2e})")
+    if rel > 1e-5:
+        raise AssertionError(f"host and device targets disagree: {losses}")
+
+
 def load_script(name: str):
     """``scripts/<name>.py``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -1321,6 +1746,8 @@ def main() -> int:
         check_entry_points(prof, kernels, rng, inputs, tmp)
         trace_latency(prof, est, rng)
         check_models(torch, prof, kernels, inputs, frames, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_training(torch, inputs, tmp)
 
     kernels += convs
     for rec in kernels:

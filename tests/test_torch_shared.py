@@ -1,6 +1,9 @@
 """The port's own copies of the JAX package's host-side modules
 (``constants``, ``config``, ``utils/human``, ``decode/oracle``,
-``data/coco``, ``evaluate/cocoeval``) against their originals.
+``data/coco``, ``evaluate/cocoeval``, and the training input pipeline and
+loop helpers: ``data/{preprocessing,transforms,dataset}``,
+``training/{schedule,metrics}``, ``cli/test_loader``) against their
+originals.
 
 The port imports nothing of the JAX package, so it keeps copies; these
 tests hold each copy equal to its original: the code itself (the syntax
@@ -20,22 +23,38 @@ import pytest
 
 from torch_ekpose_tpu import config as jax_config
 from torch_ekpose_tpu import constants as jax_constants
+from torch_ekpose_tpu.cli import test_loader as jax_test_loader
 from torch_ekpose_tpu.data import coco as jax_coco
+from torch_ekpose_tpu.data import dataset as jax_dataset
+from torch_ekpose_tpu.data import preprocessing as jax_preprocessing
+from torch_ekpose_tpu.data import transforms as jax_transforms
 from torch_ekpose_tpu.decode import oracle as jax_oracle
 from torch_ekpose_tpu.evaluate import cocoeval as jax_cocoeval
 from torch_ekpose_tpu.ops import resize as jax_resize
+from torch_ekpose_tpu.training import metrics as jax_metrics
+from torch_ekpose_tpu.training import schedule as jax_schedule
 from torch_ekpose_tpu.utils import human as jax_human
 from torch_ekpose_tpu_torch import config as port_config
 from torch_ekpose_tpu_torch import constants as port_constants
+from torch_ekpose_tpu_torch.cli import test_loader as port_test_loader
 from torch_ekpose_tpu_torch.data import coco as port_coco
+from torch_ekpose_tpu_torch.data import dataset as port_dataset
+from torch_ekpose_tpu_torch.data import preprocessing as port_preprocessing
+from torch_ekpose_tpu_torch.data import transforms as port_transforms
 from torch_ekpose_tpu_torch.decode import oracle as port_oracle
 from torch_ekpose_tpu_torch.evaluate import cocoeval as port_cocoeval
 from torch_ekpose_tpu_torch.ops import resize as port_resize
+from torch_ekpose_tpu_torch.training import metrics as port_metrics
+from torch_ekpose_tpu_torch.training import schedule as port_schedule
 from torch_ekpose_tpu_torch.utils import human as port_human
 
 PAIRS = [(jax_constants, port_constants), (jax_config, port_config),
          (jax_human, port_human), (jax_oracle, port_oracle),
-         (jax_coco, port_coco), (jax_cocoeval, port_cocoeval)]
+         (jax_coco, port_coco), (jax_cocoeval, port_cocoeval),
+         (jax_preprocessing, port_preprocessing),
+         (jax_transforms, port_transforms), (jax_dataset, port_dataset),
+         (jax_schedule, port_schedule), (jax_metrics, port_metrics),
+         (jax_test_loader, port_test_loader)]
 
 
 def _body(module, rename=False) -> str:
@@ -49,7 +68,9 @@ def _body(module, rename=False) -> str:
 
 @pytest.mark.parametrize("orig,copy", PAIRS,
                          ids=["constants", "config", "human", "oracle",
-                              "coco", "cocoeval"])
+                              "coco", "cocoeval", "preprocessing",
+                              "transforms", "dataset", "schedule", "metrics",
+                              "test_loader"])
 def test_copy_has_the_originals_code(orig, copy):
     assert _body(copy, rename=True) == _body(orig)
 

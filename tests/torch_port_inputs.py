@@ -10,8 +10,10 @@ the small shapes of ``conv_chain``'s sm90 route. It also holds the eval
 scenes (``eval_dataset``: solid-fill frames whose fill names their maps,
 written as PNGs by ``write_eval_images``) and the estimators that replay
 their maps (``ReplayMaps``, ``replay_forward``), and the weights the
-model tests use (``draw_weight``, ``working_state_dict``, ``peaky_head_``).
-It imports only the port, so it runs on a machine without JAX.
+model tests use (``draw_weight``, ``working_state_dict``, ``peaky_head_``),
+and the training checks' batches and comparisons (``train_batch``,
+``update_envelope``, ``stats_mismatches``). It imports only the port, so
+it runs on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ __all__ = ["EVAL_IDS", "NMS_CASES", "NMS_THRESH", "ReplayMaps",
            "SM90_CHAINS", "chain_arrays", "crowded_maps", "eval_dataset",
            "draw_weight", "eval_rows", "match_scores", "merge_inputs",
            "nms_case", "nms_maps", "packed_mismatches", "peaky_head_",
-           "replay_forward", "working_state_dict", "write_eval_images"]
+           "replay_forward", "stats_mismatches", "train_batch",
+           "update_envelope", "working_state_dict", "write_eval_images"]
 
 #: a standing person's 18 keypoints around the neck, in pixels at scale 1
 SKELETON = np.array([
@@ -436,3 +439,60 @@ def peaky_head_(estimator, frames: np.ndarray) -> None:
         heat_bn.bias.fill_(PEAKY_HEAT_MEAN)
         paf_bn.weight.fill_(0.0)
         paf_bn.bias.fill_(PEAKY_PAF)
+
+
+def train_batch(rng: np.random.Generator, batch: int, size: int,
+                people: int = 12):
+    """A lockstep training problem: (images ``[B, size, size, 3]``
+    float32 NHWC, N(0, 0.5) as in ``tests/test_reference_train_math.py``;
+    keypoints ``[B, people, 18, 3]`` float32, every joint labeled,
+    uniform over the frame). So many people make dense targets, which
+    keep the loss's gradient far from zero in every parameter: two
+    stacks' roundings then cannot flip the sign of Adam's first update
+    (~lr * sign(g)) in more than a few elements. Sparse targets (two
+    rendered people at 64x64) flip up to 0.6% of vgg2016's parameters
+    between the CPU and the card, against the 0.1% the envelope allows."""
+    images = rng.normal(0.0, 0.5, (batch, size, size, 3)).astype(np.float32)
+    keypoints = np.zeros((batch, people, 18, 3), np.float32)
+    keypoints[..., :2] = rng.uniform(0.0, size, (batch, people, 18, 2))
+    keypoints[..., 2] = 2
+    return images, keypoints
+
+
+def update_envelope(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
+                    start: Dict[str, np.ndarray], lr: float,
+                    steps: int = 2) -> dict:
+    """How far two stacks' parameters ended apart after ``steps`` Adam
+    steps at ``lr`` from ``start`` (every float parameter of ``want``;
+    BN statistics and counters left out): the share within 1e-5, the mean
+    and max |diff|, and the median update. At step 1 Adam's update is
+    ~lr * sign(g), so a gradient that crosses zero between the two
+    stacks' roundings moves its element by up to 2 * lr a step; the
+    envelope the checks hold is share >= 0.999, mean < 2e-6, max <=
+    2 * steps * lr + 1e-6, and a median update > 1e-5 (not vacuous)."""
+    diffs, updates = [], []
+    for key, ref in want.items():
+        if "running_" in key or key.endswith("num_batches_tracked"):
+            continue
+        diffs.append(np.abs(np.asarray(got[key], np.float64)
+                            - ref).ravel())
+        updates.append(np.abs(np.asarray(ref, np.float64)
+                              - start[key]).ravel())
+    diffs, updates = np.concatenate(diffs), np.concatenate(updates)
+    out = {"within_1e-5": float(np.mean(diffs <= 1e-5)),
+           "mean": float(diffs.mean()), "max": float(diffs.max()),
+           "median_update": float(np.median(updates))}
+    out["ok"] = (out["within_1e-5"] >= 0.999 and out["mean"] < 2e-6
+                 and out["max"] <= 2 * steps * lr + 1e-6
+                 and out["median_update"] > 1e-5)
+    return out
+
+
+def stats_mismatches(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
+                     rtol: float = 1e-4, atol: float = 1e-6) -> list:
+    """The BN ``running_mean``/``running_var`` keys of ``want`` whose
+    values ``got`` misses by more than ``atol + rtol * |want|`` (``atol``
+    covers the statistics of channels whose mean is zero by construction,
+    which are float noise around 1e-8 on both sides)."""
+    return [key for key, ref in want.items() if "running_" in key
+            and not np.allclose(got[key], ref, rtol=rtol, atol=atol)]

@@ -15,10 +15,13 @@ and ``ops/block1.py``. The port keeps its own copies of the JAX package's
 image on the host as the JAX package's ``estimate()`` does, and of its
 COCO index (``data/coco.py``) and OKS evaluator
 (``evaluate/cocoeval.py``). Images are read and written through cv2,
-else Pillow.
+else Pillow. ``data/`` and ``training/`` train one model on one card
+(``cli/train.py``): the numpy/PIL input pipeline is a copy of the JAX
+package's, the targets rasterize on the card, and the train step is plain
+torch on cuDNN.
 
 Importing the package loads no CUDA and builds nothing.
 """
 
 __all__ = ["cli", "config", "constants", "data", "decode", "evaluate",
-           "models", "native", "ops", "runtime", "utils"]
+           "models", "native", "ops", "runtime", "training", "utils"]

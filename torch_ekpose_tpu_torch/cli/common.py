@@ -7,7 +7,8 @@ Flags that mean the same thing keep the JAX CLI's names. ``--device``
 (default ``cuda``) takes the place of ``--platform``, and ``--seed``
 draws the random weights when ``-c`` is absent. The int8 dtypes and
 ``.msgpack`` checkpoints (the flax reader is not ported) are refused with
-a clear error. The JAX CLI's flags the port has no use for
+a clear error; a ``.ckpt`` written by the port's trainer loads its
+model. The JAX CLI's flags the port has no use for
 (``--s2d-blocks``, ``--num-devices``, ``--compilation-cache``) are left
 out, so argparse refuses them.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import zipfile
 from typing import Optional
 
 import torch
@@ -25,6 +27,7 @@ from torch_ekpose_tpu_torch.decode.api import BACKENDS
 from torch_ekpose_tpu_torch.models.factory import MODEL_NAMES
 from torch_ekpose_tpu_torch.runtime.checkpoint import load_torch_state_dict
 from torch_ekpose_tpu_torch.runtime.estimator import PRECISIONS, PoseEstimator
+from torch_ekpose_tpu_torch.training.trainer import read_checkpoint
 
 __all__ = ["add_model_args", "build_estimator", "estimator_kwargs",
            "load_variables", "require",
@@ -39,7 +42,8 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                         choices=MODEL_NAMES, help="model name")
     parser.add_argument("-c", "--ckpt", default=None,
                         help="reference-format .pth/.pt checkpoint "
-                        "(``module.`` prefixes are stripped)")
+                        "(``module.`` prefixes are stripped), or a .ckpt "
+                        "the port's cli.train wrote")
     parser.add_argument("--preprocess", default="vgg",
                         choices=["vgg", "rtpose"])
     parser.add_argument("--decode-backend", default="auto", choices=BACKENDS,
@@ -66,11 +70,16 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 def load_variables(model_name: str, ckpt: Optional[str]):
     """The ``state_dict`` of ``ckpt`` (a reference ``.pth``/``.pt``,
     without the parameters the reference builds for ``model_name`` but
-    never uses), or None, which makes :class:`PoseEstimator` draw random
-    weights from ``--seed``."""
+    never uses; or the model of a ``.ckpt`` the port's trainer wrote), or
+    None, which makes :class:`PoseEstimator` draw random weights from
+    ``--seed``. A flax ``.ckpt``/``.msgpack`` is refused."""
     if ckpt is None:
         print("WARNING: no checkpoint given; using random initialization")
         return None
+    if ckpt.endswith(".ckpt") and zipfile.is_zipfile(ckpt):
+        print(f"INFO: loading the port trainer's checkpoint {ckpt} for "
+              f"{model_name}")
+        return read_checkpoint(ckpt)["model"]
     if not ckpt.endswith((".pth", ".pt")):
         raise SystemExit(
             f"cannot load {ckpt}: the port reads reference .pth/.pt "

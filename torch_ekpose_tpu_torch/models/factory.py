@@ -37,25 +37,33 @@ MODEL_REGISTRY = {
 MODEL_NAMES = tuple(MODEL_REGISTRY)
 
 
-def _build(model_name: str, device) -> OpenPose:
+def _build(model_name: str, device, remat: bool) -> OpenPose:
     backbone, conv_width, conv_width2 = MODEL_REGISTRY[model_name]
     if conv_width is None:
-        return OpenPose(backbone(device=device), device=device)
+        return OpenPose(backbone(device=device), device=device, remat=remat)
     return OpenPose(backbone(conv_width, device=device), branch="ds",
-                    width=depth_fn(conv_width2), device=device)
+                    width=depth_fn(conv_width2), device=device, remat=remat)
 
 
 def get_model(
     model_name: str = "vgg2016", *, device, quantize=False,
-    s2d_blocks: int = 0,
+    s2d_blocks: int = 0, remat: bool = False,
 ) -> OpenPose:
     """Build the network with UNINITIALIZED float32 parameters and BN
     statistics on ``device``, ready for ``load_state_dict``;
-    :func:`init_model` also initializes them."""
+    :func:`init_model` also initializes them.
+
+    ``remat=True`` recomputes the backbone's and each CPM branch's
+    activations in the backward pass (``torch.utils.checkpoint``; the
+    JAX package's ``jax.checkpoint``): the same parameters and gradients,
+    less activation memory (``cli.train --remat``)."""
     if model_name not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown model {model_name!r}; available: {sorted(MODEL_NAMES)}"
         )
+    if quantize and remat:
+        # remat is a training knob, the int8 modes are serving-only
+        raise ValueError("remat does not apply to the int8 modes")
     if quantize:
         raise NotImplementedError(
             "int8 serving is not ported yet (ROADMAP Queue 1 item 6)"
@@ -66,7 +74,7 @@ def get_model(
             "(ROADMAP Queue 1 item 9)"
         )
     # built on the meta device, so no default initialization runs
-    return _build(model_name, "meta").to_empty(device=device)
+    return _build(model_name, "meta", remat).to_empty(device=device)
 
 
 def init_model(

@@ -15,8 +15,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["UNUSED_PREFIXES", "drop_unused", "load_torch_state_dict",
-           "state_dict_from_jax"]
+__all__ = ["UNUSED_PREFIXES", "drop_unused", "import_imagenet_vgg19",
+           "load_torch_state_dict", "state_dict_from_jax"]
 
 #: (kind, torch module name, flax path):
 #: "conv_wb" a conv with bias, "conv_w" one without (depthwise included:
@@ -204,3 +204,39 @@ def load_torch_state_dict(
     if all(k.startswith("module.") for k in state):
         state = {k[len("module."):]: v for k, v in state.items()}
     return state if model_name is None else drop_unused(state, model_name)
+
+
+def import_imagenet_vgg19(
+    path_or_state: Any, state_dict: Dict[str, torch.Tensor]
+) -> Dict[str, torch.Tensor]:
+    """The reference's ``--imagenet_pretrained`` initialization: copy a
+    torchvision ImageNet VGG19 *classifier* checkpoint's first ten convs
+    (``features.{0,2,5,7,10,12,14,16,19,21}.weight/bias`` — exactly
+    ``features[:23]``) into a vgg2016 ``state_dict`` (reference
+    lib/network/vgg2016.py:137-143; the JAX package's function of the same
+    name). Both sides are torch OIHW, at the same ``Sequential`` indices.
+
+    The two appended convs (indices 23, 25) and the whole CPM head keep
+    their values, and every other checkpoint key (``classifier.*``, the
+    deeper feature convs) is ignored. Returns a new ``state_dict``; a
+    missing key or a shape that does not match raises ``ValueError``.
+    """
+    if isinstance(path_or_state, dict):
+        state = path_or_state
+    else:
+        state = load_torch_state_dict(path_or_state)
+    out = dict(state_dict)
+    for idx in _VGG_BACKBONE_CONV_IDX[:10]:       # features[:23] convs only
+        for leaf in ("weight", "bias"):
+            key = f"features.{idx}.{leaf}"
+            if key not in state:
+                raise ValueError(f"{key} missing: not a torchvision VGG19 "
+                                 "classifier checkpoint")
+            new = torch.as_tensor(np.asarray(state[key]), dtype=torch.float32)
+            target = f"model0.backbone.{idx}.{leaf}"
+            old = state_dict[target]
+            if tuple(new.shape) != tuple(old.shape):
+                raise ValueError(f"{key}: shape {tuple(new.shape)} does not "
+                                 f"match {target} {tuple(old.shape)}")
+            out[target] = new.to(old.device)
+    return out
