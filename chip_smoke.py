@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path, VGG prefix path and every
-model on one CUDA card.
+"""Drive the PyTorch port's serving path, VGG prefix path, every model,
+training, int8 serving and on-card augmentation on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -159,9 +159,30 @@ Phases (any failure raises and exits non-zero):
     trace of 4 steps on batches made beforehand; (c)
     ``epoch_0.ckpt`` restored into a fresh ``Trainer`` gives its
     parameters, BN statistics and Adam state bitwise; (d) ``cli.train -m
-    mobilenet_thin --dtype bfloat16`` for one epoch, every BN's running
-    variance moved; (e) the first batch's loss with ``--targets host``
-    and ``--targets device`` within rtol 1e-5.
+    mobilenet_thin --dtype bfloat16 --loader-mode thread`` for one epoch,
+    every BN's running variance moved; (e) the first batch's loss with
+    ``--targets host`` and ``--targets device`` within rtol 1e-5;
+13. on-card augmentation, int8 serving and the export (no kernel of their
+    own: the JAX package runs them in XLA, outside any Pallas kernel):
+    (c) vgg2016 ``estimate_batch`` at batch 8, 368x432, in ``int8`` and in
+    ``int8_static`` after ``calibrate()`` on the batch, seeded weights:
+    the decode kernels' counts set to 0 before and each risen after, the
+    maps finite with cosine > 0.99 against bf16, the card's maps against
+    the port's CPU int8 forward on the same weights and two of the frames
+    (cosine >= ``INT8_CARD_COS``), the forward's ms beside bf16's in
+    turns, and ``aten::_int_mm``'s and im2col's device share of a traced
+    forward; (d) ``cli.export --dtype int8_static --calib-images`` on
+    phase 10's 32 PNG frames (seeded weights as a ``.pth``), then
+    ``cli.eval --dtype int8_static -c`` on its output through the decode
+    kernels; (a) ``data/device_aug.py::augment_core`` on the card against
+    the CPU on the same draws (batch 16, 432 -> 368 canvases), keypoints
+    within 1e-4 px and images within ``AUG_GREY_*`` grey levels,
+    ``augment_batch``'s ms a batch, and no host wait for the card in it
+    (``torch.cuda.set_sync_debug_mode``); (b) ``cli.train -m vgg2016 -b 16
+    --square_size 368 -e 2 --n-images 512 --targets raw`` in bf16, without
+    and with ``--raw-cache``, the second epoch's images/s and DataTime
+    beside phase 12(b)'s ``--targets device`` run, BatchTime beside the
+    raw step alone.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -1097,7 +1118,7 @@ def model_forward(torch, est, frames):
 
     x = nhwc_to_nchw(preprocess(torch.from_numpy(frames).cuda(),
                                 est.preprocess)).to(
-        est.compute_dtype, memory_format=torch.contiguous_format)
+        est.act_dtype, memory_format=torch.contiguous_format)
 
     def run():
         with torch.inference_mode(), precision_mode(est.precision):
@@ -1470,26 +1491,54 @@ def device_busy(trace, tmp: str) -> float:
     return busy / 1e6
 
 
+def host_waits(torch, fn) -> list:
+    """Where ``fn()`` made the host wait for the card ("file:line" of
+    each wait): the warnings of ``torch.cuda.set_sync_debug_mode``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught
+            if str(w.message).startswith("called a synchronizing")]
+
+
 def busy_share(torch, trainer, loader, tmp: str, steps: int = 4):
-    """(the card's busy share, seconds a step) over ``steps`` train steps
-    by ``torch.profiler`` (:func:`device_busy` over the wall time), on
-    batches the loader made beforehand (upload included)."""
+    """(the card's busy share, seconds a step, the times a step made the
+    host wait for the card) over ``steps`` train steps by
+    ``torch.profiler`` (:func:`device_busy` over the wall time), on
+    batches the loader made beforehand (upload included); a raw-mode
+    trainer's steps take their generators as ``Trainer`` draws them."""
     from torch.profiler import ProfilerActivity, profile
+
+    from torch_ekpose_tpu_torch.training.trainer import aug_generator
 
     batches = []
     for batch in loader:
         batches.append(batch)
         if len(batches) == 2:
             break
-    trainer.train_step(*trainer._upload(batches[0]))
+
+    def step(i):
+        extra = (aug_generator(SEED, 0, i),) if trainer.targets == "raw" \
+            else ()
+        trainer.train_step(*trainer._upload(batches[i % len(batches)]),
+                           *extra)
+
+    step(0)
+    torch.cuda.synchronize()
+    waits = host_waits(torch, lambda: step(1))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as trace:
         t0 = time.perf_counter()
         for i in range(steps):
-            trainer.train_step(*trainer._upload(batches[i % len(batches)]))
+            step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return device_busy(trace, tmp) / wall, wall / steps
+    return device_busy(trace, tmp) / wall, wall / steps, waits
 
 
 def loader_rate(data: str, size: int, batch: int, workers: int = 8):
@@ -1531,7 +1580,7 @@ def run_train_cli(torch, argv, log_dir: str):
     return trainer, scalars(log_dir), torch.cuda.max_memory_allocated()
 
 
-def check_training(torch, inputs, tmp: str) -> None:
+def check_training(torch, inputs, tmp: str) -> dict:
     """Phase 12: the training path on the card. (a) the train step
     against the CPU (:func:`check_step_parity`); (b) ``cli.train.main``
     at full width, vgg2016 at batch 16, 368x368, 2 epochs of
@@ -1544,7 +1593,8 @@ def check_training(torch, inputs, tmp: str) -> None:
     optimizer state bitwise; (d)
     ``-m mobilenet_thin --dtype bfloat16`` for one epoch (BN training on
     the card); (e) ``--targets host`` and ``--targets device`` give the
-    first batch the same loss (rtol 1e-5)."""
+    first batch the same loss (rtol 1e-5). Returns (the data directory,
+    {dtype: (images/s, DataTime ms) of the second epoch}) for phase 13."""
     from torch_ekpose_tpu_torch.cli import summary
     from torch_ekpose_tpu_torch.config import get_default_config
     from torch_ekpose_tpu_torch.data import transforms as T
@@ -1570,6 +1620,7 @@ def check_training(torch, inputs, tmp: str) -> None:
     gflop = summary.summarize("vgg2016", size)["flops"] / 1e9
     common = ["-d", "synth", "--data-dir", data, "-b", str(batch),
               "--square_size", str(size)]
+    rates = {}
     for dtype in ("float32", "bfloat16"):
         out = os.path.join(tmp, f"ckpt_{dtype}")
         t0 = time.perf_counter()
@@ -1596,8 +1647,9 @@ def check_training(torch, inputs, tmp: str) -> None:
                           target_mode="device", input_size=size,
                           n_images=32),
             batch, num_workers=0)
-        busy, alone_s = busy_share(torch, trainer, loader, tmp)
+        busy, alone_s, waits = busy_share(torch, trainer, loader, tmp)
         tflop = 3 * gflop * batch / 1e3
+        rates[dtype] = (batch / step_s, data_s * 1e3)
         print(f"cli.train vgg2016 {dtype} b{batch} {size}x{size} (the "
               f"second epoch, {TRAIN_IMAGES // batch} steps): "
               f"{1 / step_s:.3f} steps/s, {batch / step_s:.2f} images/s, "
@@ -1607,7 +1659,8 @@ def check_training(torch, inputs, tmp: str) -> None:
               f"{peak / 2**30:.2f} GiB; 4 traced steps on batches made "
               f"beforehand: {alone_s * 1e3:.1f} ms a step, "
               f"{batch / alone_s:.2f} images/s, {tflop / alone_s:.1f} "
-              f"TFLOP/s, the card busy {100 * busy:.1f}%; train "
+              f"TFLOP/s, the card busy {100 * busy:.1f}%, the host waiting "
+              f"for the card {len(waits)} times a step {waits}; train "
               f"{[round(x, 2) for x in trainer.train_curve['train']]}, val "
               f"{[round(x, 2) for x in trainer.train_curve['val']]}; "
               f"{seconds:.1f} s in all")
@@ -1635,11 +1688,13 @@ def check_training(torch, inputs, tmp: str) -> None:
         del trainer
         torch.cuda.empty_cache()
 
+    # loader threads: this run checks BN training, and 8 spawned workers
+    # would spend ~60 s importing torch for its 2 steps
     t0 = time.perf_counter()
     trainer, sc, peak = run_train_cli(
         torch, common + ["-m", "mobilenet_thin", "-e", "1", "--save_epoch",
                          "1", "--n-images", "32", "--dtype", "bfloat16",
-                         "--out-dir",
+                         "--loader-mode", "thread", "--out-dir",
                          os.path.join(tmp, "ckpt_thin")],
         os.path.join(tmp, "logs_thin"))
     stats = [v for k, v in trainer.model.state_dict().items()
@@ -1654,6 +1709,7 @@ def check_training(torch, inputs, tmp: str) -> None:
           f"{sc['BatchTime/train'][0] * 1e3:.1f} ms, all {len(stats)} BN "
           f"running variances moved, peak {peak / 2**30:.2f} GiB "
           f"({time.perf_counter() - t0:.1f} s)")
+    return data, rates
 
 
 def targets_agree(torch, trainer, data: str, size: int,
@@ -1683,6 +1739,272 @@ def targets_agree(torch, trainer, data: str, size: int,
           f"{losses['device']:.4f} (rel {rel:.2e})")
     if rel > 1e-5:
         raise AssertionError(f"host and device targets disagree: {losses}")
+
+
+#: phase 13(a)'s augmentation batch: the raw training shapes
+AUG_BATCH, AUG_CANVAS, AUG_OUT = 16, 432, 368
+#: phase 13(a): the card's augmentation against the CPU core on the same
+#: draws, in grey levels before normalizing: every pixel within
+#: AUG_GREY_MAX, all but AUG_FAR_SHARE within AUG_GREY_NEAR
+AUG_GREY_NEAR, AUG_GREY_MAX, AUG_FAR_SHARE = 0.01, 2.0, 1e-3
+
+
+def check_augmentation(torch, prof) -> float:
+    """Phase 13(a): ``data/device_aug.py::augment_core`` on the card
+    against the CPU on the same draws (batch 16, 432 -> 368 canvases with
+    their valid part below the canvas, seeded frames and keypoints; the
+    draws made on the host, as the train step's are): keypoints within
+    1e-4 px, images within ``AUG_GREY_*``; then ``augment_batch``
+    (drawing on the CPU generator, the train step's call) timed by CUDA
+    events, the host's time to queue it, and the times it made the host
+    wait for the card (none allowed). Returns its ms a batch."""
+    from torch_ekpose_tpu_torch import constants
+    from torch_ekpose_tpu_torch.data.device_aug import (
+        augment_batch, augment_core, sample_params)
+
+    rng = np.random.default_rng(SEED)
+    b, c = AUG_BATCH, AUG_CANVAS
+    images = rng.integers(0, 256, (b, c, c, 3), dtype=np.uint8)
+    valid = np.stack([rng.integers(240, c + 1, b),
+                      rng.integers(240, c + 1, b)], 1).astype(np.int32)
+    for i, (h, w) in enumerate(valid):
+        images[i, h:] = 0
+        images[i, :, w:] = 0
+    kpts = rng.uniform(0, c, (b, 6, 18, 3)).astype(np.float32)
+    kpts[..., 2] = rng.integers(0, 3, (b, 6, 18))
+    params = sample_params(b, torch.Generator().manual_seed(SEED))
+    host = [torch.from_numpy(a) for a in (images, valid, kpts)]
+    card = [a.cuda() for a in host]
+    want_img, want_kp = augment_core(*host, params, AUG_OUT)
+    got_img, got_kp = augment_core(*card, params, AUG_OUT)
+    std = np.asarray(constants.IMAGENET_STD, np.float32) * 255.0
+    grey = np.abs(got_img.cpu().numpy() - want_img.numpy()) * std
+    kp_err = float((got_kp.cpu() - want_kp).abs().max())
+    far = float((grey > AUG_GREY_NEAR).mean())
+    gen = torch.Generator().manual_seed(SEED + 1)
+    ms = prof.time_ms(lambda: augment_batch(*card, gen, AUG_OUT), reps=10)
+    core_ms = prof.time_ms(lambda: augment_core(*card, params, AUG_OUT),
+                           reps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        augment_batch(*card, gen, AUG_OUT)
+    queue_ms = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    waits = host_waits(torch, lambda: augment_batch(*card, gen, AUG_OUT))
+    print(f"augmentation on the card vs the CPU core, same draws (batch "
+          f"{b}, {c}x{c} canvases -> {AUG_OUT}x{AUG_OUT}, flips "
+          f"{int(params['flip'].sum())}, s {float(params['s'].min()):.3f}-"
+          f"{float(params['s'].max()):.3f}): keypoints max |diff| "
+          f"{kp_err:.3g} px, images max |diff| {grey.max():.4g} grey levels, "
+          f"{100 * far:.4f}% of pixels over {AUG_GREY_NEAR}; augment_batch "
+          f"{ms:.3f} ms a batch (the core alone {core_ms:.3f} ms; means of "
+          f"10 by CUDA events), the host {queue_ms:.3f} ms to queue it "
+          f"(mean of 10), waiting for the card {len(waits)} times a call "
+          f"{waits}; on "
+          f"{prof.card_line()}")
+    if kp_err > 1e-4 or grey.max() > AUG_GREY_MAX or far > AUG_FAR_SHARE:
+        raise AssertionError("the card's augmentation left the CPU's")
+    if waits:
+        raise AssertionError(f"augment_batch made the host wait for the "
+                             f"card at {waits}")
+    return ms
+
+
+def check_raw_training(torch, data: str, device_rates: dict,
+                       aug_ms: float, tmp: str) -> None:
+    """Phase 13(b): ``cli.train -m vgg2016 -b 16 --square_size 368 -e 2
+    --n-images 512 --targets raw`` in bf16, without and with
+    ``--raw-cache`` (built in the first epoch's call), with the second
+    epoch's images/s and DataTime beside phase 12(b)'s ``--targets
+    device`` run, and BatchTime beside the raw step alone (4 traced steps
+    on canvases decoded beforehand, :func:`busy_share`, with the times a
+    step made the host wait for the card)."""
+    from torch_ekpose_tpu_torch.data import transforms as T
+    from torch_ekpose_tpu_torch.data.dataset import (
+        BatchLoader, CocoKeypoints)
+
+    batch, size = 16, 368
+    common = ["-m", "vgg2016", "-d", "synth", "--data-dir", data, "-b",
+              str(batch), "--square_size", str(size), "-e", "2",
+              "--save_epoch", "0", "--n-images", str(TRAIN_IMAGES),
+              "--dtype", "bfloat16", "--targets", "raw"]
+    device_ips, device_data = device_rates["bfloat16"]
+    for cache in (False, True):
+        name = "raw_cache" if cache else "raw"
+        extra = ["--raw-cache", os.path.join(tmp, "cache", "synth")] \
+            if cache else []
+        os.makedirs(os.path.join(tmp, "cache"), exist_ok=True)
+        t0 = time.perf_counter()
+        trainer, sc, peak = run_train_cli(
+            torch, common + extra + ["--out-dir",
+                                     os.path.join(tmp, f"ckpt_{name}")],
+            os.path.join(tmp, f"logs_{name}"))
+        seconds = time.perf_counter() - t0
+        losses = trainer.train_curve["train"] + trainer.train_curve["val"]
+        if len(losses) != 4 or not np.isfinite(losses).all():
+            raise AssertionError(f"--targets raw{' --raw-cache' * cache}: "
+                                 f"losses {losses}")
+        step_s, data_s = sc["BatchTime/train"][1], sc["DataTime/train"][1]
+        loader = BatchLoader(
+            CocoKeypoints(os.path.join(data, "synth", "images", "train"),
+                          os.path.join(data, "synth",
+                                       "annotations_train.json"),
+                          preprocess=T.TRAIN_PREPROCESS(size),
+                          image_transform=T.image_transform_train,
+                          target_mode="raw", input_size=size, n_images=32),
+            batch, num_workers=0)
+        busy, alone_s, waits = busy_share(torch, trainer, loader, tmp)
+        print(f"cli.train vgg2016 bfloat16 b{batch} {size}x{size} --targets "
+              f"raw{' --raw-cache' if cache else ''} (the second epoch, "
+              f"{TRAIN_IMAGES // batch} steps): {batch / step_s:.2f} "
+              f"images/s, BatchTime {step_s * 1e3:.1f} ms against "
+              f"{alone_s * 1e3:.1f} ms a raw step alone (4 traced steps, "
+              f"the card busy {100 * busy:.1f}%, the host waiting for the "
+              f"card {len(waits)} times a step {waits}), DataTime "
+              f"{data_s * 1e3:.1f} ms, the augmentation {aug_ms:.3f} ms a "
+              f"batch on the card (13a); beside phase 12(b)'s --targets "
+              f"device {device_ips:.2f} images/s, DataTime "
+              f"{device_data:.1f} ms; peak {peak / 2**30:.2f} GiB; train "
+              f"{[round(x, 2) for x in trainer.train_curve['train']]}, val "
+              f"{[round(x, 2) for x in trainer.train_curve['val']]}; "
+              f"{seconds:.1f} s in all")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+#: phase 13(c): the card's int8 maps against the CPU port's on the same
+#: weights and frames: cosine at least INT8_CARD_COS (measured 0.99961 to
+#: 0.99984: cuDNN's bf16 input conv and the CPU's round a few values apart,
+#: and a per-example max|x| moves every scale after it)
+INT8_CARD_COS = 0.999
+
+
+def int8_shares(torch, fn, reps: int = 3) -> tuple:
+    """(``aten::_int_mm``'s, im2col's, everything's) device ms per call
+    of ``fn`` by ``torch.profiler``: im2col is ``aten::constant_pad_nd``
+    and the copies ``aten::reshape`` makes of the padded views, all on
+    the activations (the weight matrices are packed at load, and the
+    float convs neither pad nor reshape)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = trace.key_averages()
+    by = {e.key: e.device_time_total for e in events}
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    im2col = by.get("aten::constant_pad_nd", 0) + by.get("aten::reshape", 0)
+    return (by.get("aten::_int_mm", 0) / 1e3 / reps, im2col / 1e3 / reps,
+            total / 1e3 / reps)
+
+
+def check_int8(torch, prof, kernels, frames) -> None:
+    """Phase 13(c): vgg2016 ``estimate_batch`` at batch 8, 368x432, in
+    ``int8`` and in ``int8_static`` after ``calibrate()`` on the batch:
+    the decode kernels launch, the maps are finite, keep cosine > 0.99
+    against bf16 and agree with the CPU port's on the same weights (two
+    frames; the static scales the card measured); the forward's ms beside
+    bf16's in turns, and ``_int_mm``'s and im2col's device share."""
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    card = prof.card_line()
+    bf16 = PoseEstimator("vgg2016", compute_dtype=torch.bfloat16, seed=SEED)
+    want = bf16.get_outputs_batch(frames)
+    for mode in ("int8", "int8_static"):
+        est = PoseEstimator("vgg2016", compute_dtype=mode, seed=SEED)
+        t0 = time.perf_counter()
+        if mode == "int8_static":
+            est.calibrate([frames])
+        calib_s = time.perf_counter() - t0
+        est.estimate_batch(frames)
+        torch.cuda.synchronize()
+        humans, launches = counted(kernels, lambda: est.estimate_batch(frames))
+        paf, heat = est.get_outputs_batch(frames)
+        if len(humans) != BATCH or min(launches.values()) < 1 or \
+                not (np.isfinite(paf).all() and np.isfinite(heat).all()):
+            raise AssertionError(f"{mode}: launches {launches}, or maps "
+                                 "not finite")
+        cos = [cosine(a, b) for a, b in zip((paf, heat), want)]
+        state = {k: v.cpu() for k, v in est.model.state_dict().items()}
+        cpu = PoseEstimator("vgg2016", state, device="cpu",
+                            compute_dtype=mode)
+        ref = cpu.get_outputs_batch(frames[:2])
+        agree = [cosine(a[:2], b) for a, b in zip((paf, heat), ref)]
+        worst = max(float(np.abs(a[:2] - b).max() / np.abs(b).max())
+                    for a, b in zip((paf, heat), ref))
+        ms = prof.turns([model_forward(torch, est, frames),
+                         model_forward(torch, bf16, frames),
+                         lambda: est.estimate_batch(frames)], reps=10)
+        int_mm, im2col, total = int8_shares(
+            torch, model_forward(torch, est, frames))
+        print(f"int8 serving, vgg2016 {mode} (seeded init, batch {BATCH}, "
+              f"{HEIGHT}x{WIDTH}{f', calibrated in {calib_s:.2f} s' if calib_s > 0.01 else ''}): "
+              f"estimate_batch launches {launches}; cosine vs bf16 paf "
+              f"{cos[0]:.6f}, heatmap {cos[1]:.6f}; card vs CPU (two "
+              f"frames) cosine paf {agree[0]:.6f}, heatmap {agree[1]:.6f}, "
+              f"max |diff| / max|CPU| {worst:.3g} (gate cosine >= "
+              f"{INT8_CARD_COS}); means of 10 by CUDA events in turns: "
+              f"forward {ms[0]:.3f} ms against bf16's {ms[1]:.3f}, "
+              f"estimate_batch {ms[2]:.3f} ms; traced forward: the card "
+              f"busy {total:.3f} ms, aten::_int_mm {int_mm:.3f} ms "
+              f"({100 * int_mm / total:.1f}%), im2col {im2col:.3f} ms "
+              f"({100 * im2col / total:.1f}%); on {card}")
+        if min(cos) <= 0.99 or min(agree) < INT8_CARD_COS:
+            raise AssertionError(f"{mode}: cosine vs bf16 {cos}, card vs "
+                                 f"CPU {agree}")
+        del est, cpu
+
+
+def check_export(torch, kernels, tmp: str) -> None:
+    """Phase 13(d): ``cli.export --dtype int8_static --calib-images`` on
+    phase 10's 32 PNG frames (seeded vgg2016 weights as a ``.pth``), then
+    ``cli.eval --dtype int8_static -c`` on its output through the decode
+    kernels."""
+    from torch_ekpose_tpu_torch.cli import eval as cli_eval
+    from torch_ekpose_tpu_torch.cli import export
+    from torch_ekpose_tpu_torch.models.factory import init_model
+
+    src = os.path.join(tmp, "vgg2016_seeded.pth")
+    torch.save(init_model("vgg2016", device="cpu",
+                          generator=torch.Generator().manual_seed(SEED))
+               .state_dict(), src)
+    dst = os.path.join(tmp, "vgg2016_int8_static.pt")
+    image_dir = os.path.join(tmp, "coco", "images", "val")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        export.main(["-m", "vgg2016", "-c", src, "--dtype", "int8_static",
+                     "--calib-images", image_dir, "-o", dst])
+    export_s = time.perf_counter() - t0
+    saved = torch.load(dst, weights_only=True)
+    scales = [v for k, v in saved.items() if k.endswith(".act_scale")]
+    if len(scales) != 79 or min(float(v) for v in scales) <= 0 or \
+            all(float(v) == 1.0 for v in scales):
+        raise AssertionError(f"cli.export wrote {len(scales)} act_scales")
+    argv = ["-m", "vgg2016", "-d", "coco", "--data-dir", tmp, "--dtype",
+            "int8_static", "-c", dst]
+    ev = io.StringIO()
+    with contextlib.redirect_stdout(ev):
+        _, launches = counted(kernels, lambda: cli_eval.main(argv))
+    lines = ev.getvalue().splitlines()
+    setup = [ln for ln in lines if ln.startswith(">>>>")]
+    ap_line = [ln for ln in lines if ln.startswith("AP@OKS")]
+    print(f"cli.export --dtype int8_static on phase 10's 32 PNG frames: "
+          f"{out.getvalue().strip().splitlines()[-1]} in {export_s:.1f} s, "
+          f"{len(scales)} act_scales {min(float(v) for v in scales):.4g}-"
+          f"{max(float(v) for v in scales):.4g}; cli.eval --dtype "
+          f"int8_static -c on it: {setup[0] if setup else '?'}; "
+          f"{ap_line[0] if ap_line else 'no AP line'}; kernel launches "
+          f"{launches}")
+    if not setup or "int8_static" not in setup[0] or not ap_line or \
+            min(launches.values()) < 1:
+        raise AssertionError("cli.eval --dtype int8_static did not run "
+                             "through the decode kernels")
 
 
 def load_script(name: str):
@@ -1746,8 +2068,12 @@ def main() -> int:
         check_entry_points(prof, kernels, rng, inputs, tmp)
         trace_latency(prof, est, rng)
         check_models(torch, prof, kernels, inputs, frames, tmp)
+        check_int8(torch, prof, kernels, frames)
+        check_export(torch, kernels, tmp)
+    aug_ms = check_augmentation(torch, prof)
     with tempfile.TemporaryDirectory() as tmp:
-        check_training(torch, inputs, tmp)
+        data, rates = check_training(torch, inputs, tmp)
+        check_raw_training(torch, data, rates, aug_ms, tmp)
 
     kernels += convs
     for rec in kernels:

@@ -173,8 +173,8 @@ def test_vis_output_writes_channel_grid(tmp_path):
 @pytest.mark.parametrize("main,argv,error,needle", [
     (run_image.main, ["-c", "ckpt.msgpack", "-i", "x.png"], SystemExit,
      "msgpack"),
-    (run_image.main, ["--dtype", "int8", "-i", "x.png"], NotImplementedError,
-     "int8"),
+    (run_image.main, ["--dtype", "int8", "-m", "mobilenet_thin", "-i",
+                      "x.png"], ValueError, "int8"),
     (run_image.main, ["--precision", "highest", "--dtype", "int8",
                       "-i", "x.png"], SystemExit, "--precision highest"),
 ], ids=["msgpack", "int8", "highest_int8"])

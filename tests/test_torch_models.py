@@ -114,12 +114,16 @@ def test_init_model_distributions():
 @pytest.mark.parametrize("name", [n for n in MODEL_NAMES if n != "vgg2016"]
                          + ["quantize", "s2d"])
 def test_unported_options_raise(name):
-    """int8 serving (ROADMAP Queue 1 item 6) is refused for every model
-    name, and s2d_blocks (item 9) for vgg2016."""
+    """int8 serving is refused for every ds model name (the JAX package
+    quantizes the dense-conv vgg family only), vgg2016's folded int8
+    pipeline and s2d_blocks are rejected (ROADMAP Queue 1 item 9)."""
     if name == "s2d":
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
             get_model("vgg2016", device="cpu", s2d_blocks=1)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        get_model("vgg2016" if name == "quantize" else name, device="cpu",
-                  quantize=True)
+    if name == "quantize":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+            get_model("vgg2016", device="cpu", quantize="folded")
+        return
+    with pytest.raises(ValueError, match="dense-conv vgg family"):
+        get_model(name, device="cpu", quantize=True)

@@ -1,9 +1,9 @@
 """The port's own copies of the JAX package's host-side modules
 (``constants``, ``config``, ``utils/human``, ``decode/oracle``,
-``data/coco``, ``evaluate/cocoeval``, and the training input pipeline and
-loop helpers: ``data/{preprocessing,transforms,dataset}``,
-``training/{schedule,metrics}``, ``cli/test_loader``) against their
-originals.
+``data/coco``, ``evaluate/cocoeval``, the training input pipeline and
+loop helpers: ``data/{preprocessing,transforms,dataset,raw_cache}``,
+``training/{schedule,metrics}``, ``cli/test_loader``, and the legacy
+decoder ``decode/legacy``) against their originals.
 
 The port imports nothing of the JAX package, so it keeps copies; these
 tests hold each copy equal to its original: the code itself (the syntax
@@ -27,7 +27,9 @@ from torch_ekpose_tpu.cli import test_loader as jax_test_loader
 from torch_ekpose_tpu.data import coco as jax_coco
 from torch_ekpose_tpu.data import dataset as jax_dataset
 from torch_ekpose_tpu.data import preprocessing as jax_preprocessing
+from torch_ekpose_tpu.data import raw_cache as jax_raw_cache
 from torch_ekpose_tpu.data import transforms as jax_transforms
+from torch_ekpose_tpu.decode import legacy as jax_legacy
 from torch_ekpose_tpu.decode import oracle as jax_oracle
 from torch_ekpose_tpu.evaluate import cocoeval as jax_cocoeval
 from torch_ekpose_tpu.ops import resize as jax_resize
@@ -40,7 +42,9 @@ from torch_ekpose_tpu_torch.cli import test_loader as port_test_loader
 from torch_ekpose_tpu_torch.data import coco as port_coco
 from torch_ekpose_tpu_torch.data import dataset as port_dataset
 from torch_ekpose_tpu_torch.data import preprocessing as port_preprocessing
+from torch_ekpose_tpu_torch.data import raw_cache as port_raw_cache
 from torch_ekpose_tpu_torch.data import transforms as port_transforms
+from torch_ekpose_tpu_torch.decode import legacy as port_legacy
 from torch_ekpose_tpu_torch.decode import oracle as port_oracle
 from torch_ekpose_tpu_torch.evaluate import cocoeval as port_cocoeval
 from torch_ekpose_tpu_torch.ops import resize as port_resize
@@ -54,7 +58,8 @@ PAIRS = [(jax_constants, port_constants), (jax_config, port_config),
          (jax_preprocessing, port_preprocessing),
          (jax_transforms, port_transforms), (jax_dataset, port_dataset),
          (jax_schedule, port_schedule), (jax_metrics, port_metrics),
-         (jax_test_loader, port_test_loader)]
+         (jax_test_loader, port_test_loader),
+         (jax_raw_cache, port_raw_cache), (jax_legacy, port_legacy)]
 
 
 def _body(module, rename=False) -> str:
@@ -70,7 +75,7 @@ def _body(module, rename=False) -> str:
                          ids=["constants", "config", "human", "oracle",
                               "coco", "cocoeval", "preprocessing",
                               "transforms", "dataset", "schedule", "metrics",
-                              "test_loader"])
+                              "test_loader", "raw_cache", "legacy"])
 def test_copy_has_the_originals_code(orig, copy):
     assert _body(copy, rename=True) == _body(orig)
 
@@ -145,3 +150,21 @@ def test_resize_image_np_is_the_originals(shape, dst, interp):
     np.testing.assert_array_equal(
         port_resize.resize_image_np(img, *dst, interp),
         jax_resize.resize_image_np(img, *dst, interp))
+
+
+def test_legacy_decoder_gives_the_originals_people():
+    """``decode/legacy.py``'s copy on the golden decode scenes
+    (``tests/data/torch_decode_golden.npz``) returns the JAX package's
+    joint list and person rows, and finds people."""
+    import os
+
+    golden = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                  "torch_decode_golden.npz"))
+    found = 0
+    for heat, paf in zip(golden["heatmaps"], golden["pafs"]):
+        joints, people = port_legacy.paf_to_pose_legacy(heat, paf)
+        want_joints, want_people = jax_legacy.paf_to_pose_legacy(heat, paf)
+        np.testing.assert_array_equal(joints, want_joints)
+        np.testing.assert_array_equal(people, want_people)
+        found += len(people)
+    assert found > 0

@@ -76,9 +76,14 @@ def test_estimate_batch_maps_and_decode_match_jax(estimators):
 
 
 def test_estimator_refuses_unported_options():
-    for kwargs in ({"compute_dtype": "int8"}, {"s2d_blocks": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PoseEstimator(device="cpu", **kwargs)
+    """s2d_blocks is rejected naming its ROADMAP item; int8 serves the vgg
+    family only, as in the JAX package."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoseEstimator(device="cpu", s2d_blocks=1)
+    with pytest.raises(ValueError, match="vgg family"):
+        PoseEstimator("mobilenet_thin", device="cpu", compute_dtype="int8")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PoseEstimator(device="cpu", compute_dtype="int4")
     with pytest.raises(ValueError, match="precision"):
         PoseEstimator(device="cpu", precision="medium")
     with pytest.raises(ValueError, match="decode_backend"):
@@ -152,9 +157,17 @@ def test_server_concurrent_submits(server):
         assert humans == [] and scale == 1.0 and tuple(padded) == (64, 64)
 
 
+#: modules the port gained with on-card augmentation, the flax reader and
+#: int8 serving; the import check must reach each
+NEW_MODULES = ("cli.export", "data.device_aug", "data.raw_cache",
+               "decode.legacy", "models.quant", "runtime.flax_msgpack")
+
+
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax, flax and the JAX
-    package (``torch_ekpose_tpu``, ``torch_ekpose_tpu.*``) absent."""
+    """Every module of the port (the ones in ``NEW_MODULES`` among them)
+    imports with jax, flax, msgpack and the JAX package
+    (``torch_ekpose_tpu``, ``torch_ekpose_tpu.*``) absent: the card has
+    none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torch_ekpose_tpu_torch as pkg\n"
@@ -163,16 +176,18 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'torch_ekpose_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'torch_ekpose_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         os.pardir)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = out.stdout.split()
+    assert len(names) >= 63
+    assert {f"torch_ekpose_tpu_torch.{m}" for m in NEW_MODULES} <= set(names)
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py",
@@ -213,8 +228,9 @@ def test_chip_smoke_refuses_without_card():
 
 
 def test_serve_cli_refuses_unported_dtype():
-    """The serving CLI parses the reference's flags and refuses int8
-    instead of serving bf16 under an int8 label."""
+    """The serving CLI parses the reference's flags and refuses int8 for
+    a model the int8 mode does not cover (a ds name, as the JAX package
+    does) instead of serving bf16 under an int8 label."""
     from torch_ekpose_tpu_torch.cli import serve
 
     args = serve.build_parser().parse_args(
@@ -222,5 +238,6 @@ def test_serve_cli_refuses_unported_dtype():
          "--port", "0"])
     assert (args.model, args.device, args.dtype, args.port) == (
         "vgg2016", "cpu", "float32", 0)
-    with pytest.raises(NotImplementedError, match="int8"):
-        serve.main(["--device", "cpu", "--dtype", "int8"])
+    with pytest.raises(ValueError, match="int8"):
+        serve.main(["--device", "cpu", "--dtype", "int8", "-m",
+                    "mobilenet_thin"])

@@ -22,8 +22,12 @@ frozen backbone's reference is that step with ``model0``'s parameters
 put back after each step, which is what the JAX package's
 ``make_optimizer(freeze_backbone=True)`` computes (``set_to_zero`` on
 ``model0``; the weight decay and Adam act element by element, so
-``model0``'s own moments move nothing else).
+``model0``'s own moments move nothing else). The same step carries the
+restore lockstep: a JAX trainer ``.ckpt`` written after step 1 and
+restored by each package's ``Trainer`` takes step 2 alike.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -34,6 +38,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 import torch_port_inputs as inputs  # noqa: E402
+from torch_ekpose_tpu.config import (  # noqa: E402
+    get_default_config as jax_config)
 from torch_ekpose_tpu.data.targets import (  # noqa: E402
     make_batched_target_fn as jax_target_fn)
 from torch_ekpose_tpu.models import get_model as jax_get_model  # noqa: E402
@@ -43,10 +49,14 @@ from torch_ekpose_tpu.training import cpm_loss as jax_cpm_loss  # noqa: E402
 from torch_ekpose_tpu.training import create_train_state  # noqa: E402
 from torch_ekpose_tpu.training import make_optimizer as jax_optimizer  # noqa: E402
 from torch_ekpose_tpu.training import make_train_step as jax_train_step  # noqa: E402
+from torch_ekpose_tpu.training import (  # noqa: E402
+    set_learning_rate as jax_set_lr)
+from torch_ekpose_tpu.training.trainer import Trainer as JaxTrainer  # noqa: E402
+from torch_ekpose_tpu_torch.config import get_default_config  # noqa: E402
 from torch_ekpose_tpu_torch.models.factory import (  # noqa: E402
     get_model, init_model)
 from torch_ekpose_tpu_torch.training import (  # noqa: E402
-    cpm_loss, make_optimizer, make_train_step)
+    Trainer, cpm_loss, make_optimizer, make_train_step)
 
 torch.set_num_threads(2)  # xdist already runs one process per core
 
@@ -79,11 +89,19 @@ def jax64():
                                                              targets="host")
 
 
+def _jax64_state(jax64, variables):
+    """The float64 train state, its rate a strong float64 (the state the
+    step returns has one, so every step runs one compile); call under
+    ``jax.enable_x64``."""
+    model, tx, _ = jax64
+    v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+    return jax_set_lr(create_train_state(model, v64, tx), np.float64(LR))
+
+
 def _jax64_run(jax64, variables, batches, freeze_backbone=False):
     model, tx, step = jax64
     with jax.enable_x64(True):
-        v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
-        state = create_train_state(model, v64, tx)
+        state = _jax64_state(jax64, variables)
         backbone = state.params["model0"]
         logs = []
         for images, kpts in batches:
@@ -190,3 +208,63 @@ def test_train_mode_bn_uses_the_unbiased_variance(start):
     biased = x.var(dim=(0, 2, 3), unbiased=False)
     torch.testing.assert_close(delta, unbiased, rtol=1e-9, atol=0)
     assert bool(((delta - biased).abs() > 1e-6).all())
+
+
+def test_restored_trainer_steps_as_jax(start, jax64, tmp_path, monkeypatch):
+    """A JAX trainer ``.ckpt`` (``Trainer.save`` after one float64 step)
+    restored by the port's ``Trainer`` (float64 model; the flax reader and
+    the optax -> Adam mapping) takes step 2 as the JAX ``Trainer`` restored
+    from the same file does: the 17 series within rtol 5e-4, the
+    parameters in the 2-step envelope, the running statistics within rtol
+    1e-4."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    model, tx, step = jax64
+    state, variables = start
+    (b1, k1), (b2, k2) = _batches(4)
+    heat1, paf1 = jax_target_fn(*GRID)(k1)
+    heat2, paf2 = jax_target_fn(*GRID)(k2)
+    path = str(tmp_path / "epoch_0.ckpt")
+    cfg = jax_config()
+    cfg.TRAIN.square_size = S
+    with jax.enable_x64(True):
+        v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+        state1, _ = step(_jax64_state(jax64, variables),
+                         b1.astype(np.float64), heat1, paf1)
+        writer = JaxTrainer(NAME, config=cfg, variables=v64,
+                            out_dir=str(tmp_path / "w"),
+                            log_dir=str(tmp_path / "wl"))
+        writer.state = state1
+        writer.save(path)
+        reader = JaxTrainer(NAME, config=cfg, variables=v64,
+                            out_dir=str(tmp_path / "r"),
+                            log_dir=str(tmp_path / "rl"))
+        reader.restore(path)
+        # the JAX trainer's own tx is another static object and its mesh
+        # another placement: keep the compiled step's, with the restored
+        # values on the host and the counter weakly typed as it was
+        restored = state1.replace(
+            params=jax.device_get(reader.state.params),
+            batch_stats=jax.device_get(reader.state.batch_stats),
+            opt_state=jax.device_get(reader.state.opt_state),
+            step=jnp.asarray(int(reader.state.step)))
+        state2, out = step(restored, b2.astype(np.float64), heat2, paf2)
+        want_logs = [{k: float(v) for k, v in out.items()}]
+        want = export_torch_checkpoint(
+            {"params": state2.params, "batch_stats": state2.batch_stats},
+            NAME, prefix="")
+
+    pcfg = get_default_config()
+    pcfg.TRAIN.square_size = S
+    port = Trainer(NAME, config=pcfg, out_dir=str(tmp_path / "p"),
+                   log_dir=str(tmp_path / "pl"), device="cpu")
+    port.model.double()
+    port.restore(path)
+    assert (port.step, port.epoch) == (1, 1)
+    got_logs = [{k: float(v) for k, v in port.train_step(
+        torch.from_numpy(b2).double(), torch.from_numpy(k2)).items()}]
+    got = {k: v.numpy() for k, v in port.model.state_dict().items()}
+    _check_series(got_logs, want_logs)
+    begin = {k: v.numpy() for k, v in state.items()}
+    env = inputs.update_envelope(got, want, begin, LR)
+    assert env["ok"], env
+    assert inputs.stats_mismatches(got, want) == []

@@ -11,7 +11,10 @@ to >= 99.9% within 1e-5, mean |diff| < 2e-6 and max <= 2 x steps x lr +
 median update > 1e-5 so the check is not vacuous; every logged series
 within rtol 5e-4. The JAX step is compiled once (host targets; the
 device-target case rasterizes with ``gen_targets_jax`` first, which is
-what its device step does).
+what its device step does, and the raw case augments with its
+``augment_batch`` before that, which is what its raw step does): every
+rate goes in as a strong float32, so the state the step returns has the
+signature it was given and a second step does not compile again.
 """
 
 import numpy as np
@@ -24,6 +27,8 @@ import jax.numpy as jnp  # noqa: E402
 
 import torch_jax_models as tjm  # noqa: E402
 import torch_port_inputs as inputs  # noqa: E402
+from torch_ekpose_tpu.data.device_aug import (  # noqa: E402
+    augment_batch as jax_augment)
 from torch_ekpose_tpu.data.targets import (  # noqa: E402
     make_batched_target_fn as jax_target_fn)
 from torch_ekpose_tpu.models import get_model as jax_get_model  # noqa: E402
@@ -84,8 +89,10 @@ def _host_targets(kpts, grid=GRID):
 
 def _jax_run(jax_step, variables, batches, targets, lr_after=None):
     model, step = jax_step
-    # the rate as set_learning_rate writes it: one compile for every run
-    state = jax_set_lr(create_train_state(model, variables, JAX_TX), LR)
+    # the rate as a strong float32 (a Python float would be weakly typed,
+    # and the state the step returns, strong, would compile it again)
+    state = jax_set_lr(create_train_state(model, variables, JAX_TX),
+                       np.float32(LR))
     grid, logs = _grid(batches), []
     for i, (images, kpts) in enumerate(batches):
         if targets == "device":
@@ -95,7 +102,7 @@ def _jax_run(jax_step, variables, batches, targets, lr_after=None):
         state, out = step(state, images, heat, paf)
         logs.append({k: float(v) for k, v in out.items()})
         if lr_after is not None and i == 0:
-            state = jax_set_lr(state, lr_after)
+            state = jax_set_lr(state, np.float32(lr_after))
     return logs, export_torch_checkpoint({"params": state.params},
                                          "vgg2016", prefix="")
 
@@ -264,11 +271,57 @@ def test_bf16_step_tracks_jax_and_float32(jax_step, variables):
 
 
 def test_unported_target_mode_is_refused():
+    """An unknown mode, and ``raw`` where it has no meaning (validation
+    never augments), are refused; ``device`` and ``raw`` need the grid."""
     model = get_model("vgg2016", device="meta")
     optimizer = torch.optim.Adam([torch.zeros(1, requires_grad=True)])
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        make_train_step(model, optimizer, targets="raw", grid=GRID)
-    with pytest.raises(ValueError, match="grid"):
-        make_train_step(model, optimizer, targets="device")
+    for targets in ("device", "raw"):
+        with pytest.raises(ValueError, match="grid"):
+            make_train_step(model, optimizer, targets=targets)
+    with pytest.raises(ValueError, match="targets"):
+        make_eval_step(model, targets="raw", grid=GRID)
     with pytest.raises(ValueError, match="targets"):
         make_eval_step(model, targets="pixels", grid=GRID)
+
+
+def test_raw_step_matches_jax(jax_step, variables, monkeypatch):
+    """``targets="raw"``: ``step(canvases_u8, valid_hw, keypoints,
+    generator)`` augments on the device, rasterizes and steps. Against
+    the JAX package's raw step (``augment_batch`` on a key, then its
+    device targets and its step) on the same weights and canvases, the
+    port's draws replaced by the JAX package's (the key's splits,
+    replayed): the first step's 17 series within rtol 5e-4 (the first
+    loss) and the parameters after it in the envelope (Adam's first step
+    is ~lr * sign(g): the gradients' signs)."""
+    import torch_ekpose_tpu_torch.data.device_aug as device_aug
+
+    rng = np.random.default_rng(9)
+    c = 96
+    canvases = rng.integers(0, 256, (B, c, c, 3), dtype=np.uint8)
+    valid = np.asarray([[c, c], [80, 90]], np.int32)
+    canvases[1, 80:] = 0
+    canvases[1, :, 90:] = 0
+    kpts = inputs.train_batch(rng, B, c)[1]
+    key = jax.random.PRNGKey(5)
+    images, kp = jax_augment(canvases, valid, kpts, key, out_size=S)
+    heat, paf = jax_target_fn(*GRID)(kp)
+    model, step = jax_step
+    state = jax_set_lr(create_train_state(model, variables, JAX_TX),
+                       np.float32(LR))
+    state, out = step(state, images, heat, paf)
+    want = ([{k: float(v) for k, v in out.items()}],
+            export_torch_checkpoint({"params": state.params}, "vgg2016",
+                                    prefix=""))
+
+    draws = tjm.jax_draws(key, B)
+    monkeypatch.setattr(device_aug, "sample_params",
+                        lambda batch, generator, *a, **kw: draws)
+    port, _, port_step = _port(variables, targets="raw")
+    logs = port_step(torch.from_numpy(canvases), torch.from_numpy(valid),
+                     torch.from_numpy(kpts), torch.Generator())
+    got = ([{k: float(v) for k, v in logs.items()}],
+           {k: v.numpy() for k, v in port.state_dict().items()})
+    start = {k: v.numpy() for k, v in state_dict_from_jax(
+        variables, "vgg2016").items()}
+    env = _check(got, want, start)
+    assert env["median_update"] > 1e-5

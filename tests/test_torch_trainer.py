@@ -4,10 +4,12 @@
 Adam state back bitwise; a set ``preempted`` flag writes
 ``preempt.ckpt``, which ``cli.train`` resumes from and consumes;
 ``cli.train --device cpu`` runs end to end on rendered scenes (also from
-a torchvision-style VGG19 file through the frozen-backbone warmup);
-unported flags and flax checkpoints exit naming their ROADMAP item; with
-no card and no ``--device cpu`` training raises; the serving CLIs load
-a checkpoint the trainer wrote.
+a torchvision-style VGG19 file through the frozen-backbone warmup, and
+with ``--targets raw`` with and without ``--raw-cache``, whose
+per-batch draws repeat across a resume); unported flags exit naming
+their ROADMAP item, and a flax file that is no trainer checkpoint exits
+saying so; with no card and no ``--device cpu`` training raises; the
+serving CLIs load a checkpoint the trainer wrote.
 """
 
 import json
@@ -234,8 +236,9 @@ def test_imagenet_import_matches_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--targets", "raw"], "item 5b"),
-    (["--raw-cache", "cache"], "item 5b"),
+    (["--targets", "raw", "--num-processes", "2"], "item 7"),
+    (["--targets", "raw", "--raw-cache", "cache", "--num-devices", "2"],
+     "item 7"),
     (["--zero1"], "item 7"),
     (["--spatial", "2"], "item 7"),
     (["--num-devices", "2"], "item 7"),
@@ -267,20 +270,82 @@ def test_process_id_is_unknown(capsys):
 
 
 def test_flax_checkpoint_is_refused(tmp_path, data_dir):
+    """A flax file that holds no trainer state (the JAX package's trainer
+    ``.ckpt`` restores: ``tests/test_torch_flax_reader.py``) exits naming
+    what it holds, from ``restore``, ``cli.train`` and the serving
+    loader."""
     flax = pytest.importorskip("flax.serialization")
     path = str(tmp_path / "epoch_3.ckpt")
     with open(path, "wb") as f:
         f.write(flax.msgpack_serialize({"params": {"w": np.zeros(3)}}))
-    with pytest.raises(SystemExit, match="item 5b"):
+    with pytest.raises(SystemExit, match="not a trainer checkpoint"):
         _trainer(tmp_path).restore(path)
-    with pytest.raises(SystemExit, match="item 5b"):
+    with pytest.raises(SystemExit, match="not a trainer checkpoint"):
         cli_train.main(["-m", NAME, "-d", "synth", "--data-dir", data_dir,
                         "--device", "cpu", "--square_size", "64", "-b", "2",
                         "-e", "1", "--workers", "0", "--pretrained_path",
                         path, "--out-dir", str(tmp_path / "out"),
                         "--logdir", str(tmp_path / "logs")])
-    with pytest.raises(SystemExit, match="msgpack reader is not ported"):
+    with pytest.raises(SystemExit, match="not a mobilenet_thin checkpoint"):
         load_variables(NAME, path)
+
+
+def _cli_raw(data_dir, tmp_path, *extra):
+    return cli_train.main(["-m", NAME, "-d", "synth", "--data-dir", data_dir,
+                           "--device", "cpu", "--square_size", "64", "-b",
+                           "2", "-e", "2", "--workers", "0", "--targets",
+                           "raw", "--out-dir", str(tmp_path / "out"),
+                           "--logdir", str(tmp_path / "logs"), *extra])
+
+
+def test_cli_train_raw_runs_two_epochs(tmp_path, data_dir):
+    """``--targets raw``: decode-only canvases, augmented in the step; two
+    epochs, finite losses, checkpoints written; the validation loader
+    still serves device-target items."""
+    trainer = _cli_raw(data_dir, tmp_path, "--save_epoch", "1")
+    losses = trainer.train_curve["train"] + trainer.train_curve["val"]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert trainer.step == 4
+    assert os.path.exists(tmp_path / "out" / "epoch_1.ckpt")
+
+
+def test_cli_train_raw_cache_builds_then_reads(tmp_path, data_dir,
+                                               monkeypatch):
+    """``--raw-cache PREFIX``: the first run builds the cache (the raw
+    loader's canvases, valid sizes and keypoints) and trains from it; a
+    second run reads it without decoding an image and, its draws seeded by
+    (seed, epoch, batch), trains to the same losses; ``--raw-cache``
+    without ``--targets raw`` exits."""
+    from torch_ekpose_tpu_torch.data import raw_cache
+
+    prefix = str(tmp_path / "cache" / "synth")
+    os.makedirs(os.path.dirname(prefix))
+    first = _cli_raw(data_dir, tmp_path / "a", "--raw-cache", prefix)
+    assert raw_cache.cache_exists(prefix)
+    cached = raw_cache.RawArrayDataset(prefix)
+    assert len(cached) == 4 and cached[0][0].shape == (432, 432, 3)
+    monkeypatch.setattr(cli_train, "build_raw_cache", None)
+    monkeypatch.setattr(CocoKeypoints, "_raw_item", None)
+    again = _cli_raw(data_dir, tmp_path / "b", "--raw-cache", prefix)
+    assert again.train_curve["train"] == first.train_curve["train"]
+    with pytest.raises(SystemExit, match="--targets raw"):
+        cli_train.main(["-d", "synth", "--data-dir", data_dir, "--device",
+                        "cpu", "--raw-cache", prefix, "--logdir",
+                        str(tmp_path / "logs")])
+
+
+def test_raw_draws_repeat_by_epoch_and_batch():
+    """A raw batch's augmentation generator depends on (seed, epoch,
+    batch) alone, so a resumed epoch draws what it drew before."""
+    from torch_ekpose_tpu_torch.data.device_aug import sample_params
+    from torch_ekpose_tpu_torch.training.trainer import aug_generator
+
+    def s(*key):
+        return sample_params(4, aug_generator(*key))["s"].tolist()
+
+    assert s(0, 3, 5) == s(0, 3, 5)
+    assert len({tuple(s(*k)) for k in [(0, 3, 5), (0, 3, 6), (0, 4, 5),
+                                       (1, 3, 5)]}) == 4
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

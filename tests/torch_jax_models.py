@@ -6,7 +6,8 @@ port against (not a test file; imported by ``tests/test_torch_*.py``).
 from a seeded numpy generator by ``torch_port_inputs.draw_weight``, so BN
 and every conv do real work. :func:`jax_maps` runs one jitted
 float32 ``apply`` and returns the backbone output and the 12 stage
-outputs, NHWC.
+outputs, NHWC. :func:`jax_draws` replays the JAX package's per-image
+augmentation draws.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch_port_inputs as inputs
 from torch_ekpose_tpu.models import get_model
 
-__all__ = ["jax_maps", "jax_model", "jax_variables", "nchw", "variables_shape"]
+__all__ = ["jax_draws", "jax_maps", "jax_model", "jax_variables", "nchw",
+           "variables_shape"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,6 +67,38 @@ def jax_maps(name: str, variables: dict, x: np.ndarray):
     ))(variables, jnp.asarray(x))
     features = inter["intermediates"]["model0"]["__call__"][0]
     return np.asarray(features), [np.asarray(s) for s in saved]
+
+
+def jax_draws(key, batch: int, scale_range=(0.5, 1.0), flip_prob=0.5,
+              strength=0.1) -> dict:
+    """The JAX package's per-image draws of ``augment_batch(..., key)``:
+    its key splits (``_augment_one``, ``_color_jitter_device``), replayed
+    under ``jit`` and ``vmap`` as there."""
+    lo, hi = scale_range
+
+    def one(k):
+        k_flip, k_scale, k_cx, k_cy, k_jit = jax.random.split(k, 5)
+        k_perm, k_b, k_c, k_s, k_h = jax.random.split(k_jit, 5)
+        factors = jnp.stack([
+            jax.random.uniform(k_b, (), minval=1 - strength,
+                               maxval=1 + strength),
+            jax.random.uniform(k_c, (), minval=1 - strength,
+                               maxval=1 + strength),
+            jax.random.uniform(k_s, (), minval=1 - strength,
+                               maxval=1 + strength),
+            jax.random.uniform(k_h, (), minval=-strength, maxval=strength),
+        ])
+        return {"order": jax.random.permutation(k_perm, 4),
+                "factors": factors,
+                "s": jax.random.uniform(k_scale, (), minval=lo, maxval=hi),
+                "flip": jax.random.bernoulli(k_flip, flip_prob),
+                "crop_x": jax.random.uniform(k_cx, ()),
+                "crop_y": jax.random.uniform(k_cy, ())}
+
+    draws = jax.jit(jax.vmap(one))(jax.random.split(key, batch))
+    import torch
+
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
 
 
 def nchw(x: np.ndarray):

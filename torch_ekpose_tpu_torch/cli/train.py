@@ -7,12 +7,18 @@ Counterpart of the JAX package's ``cli/train.py`` for one process on one
 card: the same flags and defaults, with ``--device`` (default ``cuda``)
 in place of the platform choice. ``--targets device`` rasterizes the
 heatmap/PAF targets on the card inside the train step; ``--targets host``
-rasterizes them in the loader's workers, as the reference does.
+rasterizes them in the loader's workers, as the reference does;
+``--targets raw`` has the loader only decode (and place on a 432-pixel
+canvas) and runs the whole augmentation on the card
+(``data/device_aug.py``), and ``--raw-cache PREFIX`` replaces even the
+decode by memory-mapped arrays (``data/raw_cache.py``), built on the
+first run (this one process builds it; there is no other to wait for).
 
-Refused, each naming the ROADMAP item that ports it: ``--targets raw``
-and ``--raw-cache`` (Queue 1 item 5b); ``--zero1``, ``--spatial`` above
-1, ``--coordinator``, ``--num-processes`` above 1 and ``--num-devices`` /
-``--gpus`` above one device (item 7). ``--compilation-cache`` (a JAX
+Refused, each naming the ROADMAP item that ports it: ``--zero1``,
+``--spatial`` above 1, ``--coordinator``, ``--num-processes`` above 1 and
+``--num-devices`` / ``--gpus`` above one device (item 7, with the
+multi-process wait for the raw cache); ``--raw-cache`` without
+``--targets raw``. ``--compilation-cache`` (a JAX
 flag) and ``--process-id`` (a multi-host rank) have no meaning here, so
 argparse refuses them.
 """
@@ -32,6 +38,8 @@ from torch_ekpose_tpu_torch.cli import common
 from torch_ekpose_tpu_torch.config import get_default_config
 from torch_ekpose_tpu_torch.data import transforms as T
 from torch_ekpose_tpu_torch.data.dataset import BatchLoader, CocoKeypoints
+from torch_ekpose_tpu_torch.data.raw_cache import (
+    RawArrayDataset, build_raw_cache, cache_exists)
 from torch_ekpose_tpu_torch.models.factory import MODEL_NAMES, init_model
 from torch_ekpose_tpu_torch.runtime.checkpoint import import_imagenet_vgg19
 from torch_ekpose_tpu_torch.training import Logger, Trainer
@@ -97,11 +105,13 @@ def _parser() -> argparse.ArgumentParser:
                         choices=["device", "host", "raw"],
                         help="host: reference-shaped host pipeline; "
                         "device: targets rasterized on the card; raw: "
-                        "on-card augmentation (ROADMAP Queue 1 item 5b; "
-                        "refused here)")
+                        "the loader only decodes, the whole augmentation "
+                        "runs on the card")
     parser.add_argument("--raw-cache", type=str, default=None,
-                        help="with --targets raw: a pre-decoded image "
-                        "cache (ROADMAP Queue 1 item 5b; refused here)")
+                        metavar="PREFIX",
+                        help="with --targets raw: memory-mapped decoded "
+                        "training images at PREFIX_*.npy (built on the "
+                        "first run), so an epoch decodes nothing")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
                         help="activation/compute dtype for the train step; "
@@ -134,12 +144,8 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args) -> None:
-    """Exit on a flag whose path is not ported, naming its ROADMAP item."""
-    if args.targets == "raw" or args.raw_cache:
-        raise SystemExit(
-            "--targets raw / --raw-cache (on-card augmentation and the "
-            "decoded-image cache) are not ported yet (ROADMAP Queue 1 "
-            "item 5b); use --targets device or host")
+    """Exit on a flag whose path is not ported, naming its ROADMAP item,
+    and on ``--raw-cache`` without ``--targets raw``."""
     n_dev = args.num_devices
     if args.gpus:
         n_dev = len([g for g in args.gpus.split(",") if g.strip() != ""])
@@ -156,6 +162,9 @@ def refuse_unported(args) -> None:
                 f"{flag}: multi-device and multi-host training is not "
                 "ported yet (ROADMAP Queue 1 item 7); this trainer runs "
                 "on one device")
+    if args.raw_cache and args.targets != "raw":
+        raise SystemExit("--raw-cache holds the decoded images of "
+                         "--targets raw; add --targets raw or drop it")
 
 
 def imagenet_state(args) -> dict:
@@ -221,16 +230,28 @@ def _train(args, log_dir: str) -> Optional[Trainer]:
         anno = os.path.join(
             args.data_dir, args.datasets, f"annotations_{mode}.json"
         )
+        # raw mode: the TRAIN loader serves decode-only uint8 canvases
+        # (the train step augments them on the card); validation never
+        # augments, so its loader serves device-target items
+        raw_train = args.targets == "raw" and train
         ds = CocoKeypoints(
             root, anno,
             preprocess=T.TRAIN_PREPROCESS(args.square_size),
             image_transform=(
                 T.image_transform_train if train else T.image_transform
             ),
-            target_mode=args.targets,
+            target_mode="raw" if raw_train else (
+                "device" if args.targets == "raw" else args.targets),
             input_size=args.square_size,
             n_images=args.n_images,
         )
+        if raw_train and args.raw_cache:
+            if not cache_exists(args.raw_cache):
+                # the meta file lands last: a cut build is rebuilt
+                print(f"INFO: building the raw cache {args.raw_cache} "
+                      f"({len(ds)} images)")
+                build_raw_cache(ds, args.raw_cache, progress=True)
+            ds = RawArrayDataset(args.raw_cache)
         return BatchLoader(
             ds, args.batch_size, shuffle=train,
             num_workers=args.workers, drop_last=train,

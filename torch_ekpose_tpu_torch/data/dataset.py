@@ -14,10 +14,9 @@ The loader's worker processes are spawned, not forked: the training
 process has CUDA initialized, and a forked child that touches it dies.
 
 The port's own copy of the JAX package's ``data/dataset.py``, code for
-code (``tests/test_torch_shared.py`` holds the syntax trees equal), so
-its docstrings still name the JAX package's ``raw`` mode modules
-(``device_aug``, ``raw_cache``), which the port has not ported yet
-(ROADMAP Queue 1 item 5b).
+code (``tests/test_torch_shared.py`` holds the syntax trees equal); the
+``raw`` mode's modules it names (``device_aug``, ``raw_cache``) are the
+port's own ``data/device_aug.py`` and ``data/raw_cache.py``.
 """
 
 from __future__ import annotations

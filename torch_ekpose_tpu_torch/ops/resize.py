@@ -1,17 +1,20 @@
-"""OpenCV-compatible separable resampling as dense matrices (numpy).
+"""OpenCV-compatible separable resampling as dense matrices.
 
-A numpy copy of the JAX package's ``ops/resize.py`` helpers that the port
-needs (that module imports ``jax.numpy``): each 1-D resample is a dense
-``[dst, src]`` weight matrix with OpenCV's conventions for float inputs,
+The port's counterpart of the JAX package's ``ops/resize.py``: each 1-D
+resample is a dense ``[dst, src]`` weight matrix (built in numpy, cached)
+with OpenCV's conventions for float inputs,
 
 - coordinate mapping ``src = (dst + 0.5) * (src_len / dst_len) - 0.5``
   (``floor(dst * src_len / dst_len)`` for NEAREST),
 - the bicubic Keys kernel with ``A = -0.75``,
 - border replication (taps clamped to the valid range).
 
-The decoder's x8 bicubic peak refinement uses ``resize_matrix(5, 40,
-"cubic")``; the estimator's no-cv2 padding path and the numpy decode's
-peak refinement (``decode/oracle.py``) use :func:`resize_image_np`.
+applied with two products: :func:`resize_image_np` in numpy (the
+estimator's no-cv2 padding path, the numpy decode's peak refinement),
+:func:`resize_2d` / :func:`resize_image_torch` in torch on the tensor's
+device (the JAX package's ``resize_2d`` / ``resize_image_jax``; float32,
+TF32 off). The decoder's x8 bicubic peak refinement uses
+``resize_matrix(5, 40, "cubic")``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-__all__ = ["resize_matrix", "resize_image_np"]
+__all__ = ["resize_2d", "resize_image_np", "resize_image_torch",
+           "resize_matrix"]
 
 
 def _cubic_keys(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -80,3 +85,32 @@ def resize_image_np(
     out = np.tensordot(rh, img, axes=(1, 0))            # [h, W, C]
     out = np.tensordot(rw, out, axes=(1, 1))            # [w, h, C]
     return np.ascontiguousarray(np.swapaxes(out, 0, 1))  # [h, w, C]
+
+
+def resize_2d(img: torch.Tensor, dst_h: int, dst_w: int,
+              interpolation: str) -> torch.Tensor:
+    """Resize a [H, W] or [H, W, C] tensor on its device; returns float32
+    (TF32 off, so the products stay float32)."""
+    dev = img.device
+    rh = torch.from_numpy(resize_matrix(img.shape[0], dst_h,
+                                        interpolation)).to(dev)
+    rw = torch.from_numpy(resize_matrix(img.shape[1], dst_w,
+                                        interpolation)).to(dev)
+    img = img.float()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if img.ndim == 2:
+            return rh @ img @ rw.T
+        # [H, W, C]: contract H, then W, channels last
+        out = torch.einsum("hH,HWC->hWC", rh, img)
+        return torch.einsum("wW,hWC->hwC", rw, out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resize_image_torch(img: torch.Tensor, dst_h: int, dst_w: int,
+                       interpolation: str = "linear") -> torch.Tensor:
+    """:func:`resize_2d` with cv2's default interpolation (the JAX
+    package's ``resize_image_jax``)."""
+    return resize_2d(img, dst_h, dst_w, interpolation)

@@ -15,8 +15,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torch_ekpose_tpu_torch.runtime.flax_msgpack import read_flax_msgpack
+
 __all__ = ["UNUSED_PREFIXES", "drop_unused", "import_imagenet_vgg19",
-           "load_torch_state_dict", "state_dict_from_jax"]
+           "load_flax_variables", "load_torch_state_dict", "params_from_jax",
+           "state_dict_from_jax"]
 
 #: (kind, torch module name, flax path):
 #: "conv_wb" a conv with bias, "conv_w" one without (depthwise included:
@@ -150,10 +153,22 @@ def _family(model_name: str) -> str:
                        f"{sorted(_FAMILIES)}") from None
 
 
-def _leaf(tree: Dict[str, Any], path: Tuple[str, ...]) -> torch.Tensor:
+def _node(tree: Dict[str, Any], path: Tuple[str, ...]):
     for key in path:
         tree = tree[key]
-    return torch.from_numpy(np.array(tree))
+    return tree
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A leaf of a JAX tree (numpy, numpy bfloat16 from ``ml_dtypes``, or a
+    ``torch.bfloat16`` tensor from :mod:`flax_msgpack`) as a tensor of its
+    own memory."""
+    if torch.is_tensor(leaf):
+        return leaf.clone()
+    leaf = np.array(leaf)
+    if leaf.dtype.name == "bfloat16":
+        return torch.from_numpy(leaf.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(leaf)
 
 
 def _oihw(kernel: torch.Tensor) -> torch.Tensor:
@@ -161,26 +176,60 @@ def _oihw(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.permute(3, 2, 0, 1).contiguous()
 
 
+def _conv(node: Dict[str, Any], tname: str, bias: bool):
+    """One conv's entries: ``weight`` (+ ``bias``), or an int8 conv's
+    ``weight_q`` (HWIO -> OIHW), ``scale``, ``bias`` and ``act_scale``
+    (``models/quant.py``), where the tree holds ``kernel_q``."""
+    if "kernel_q" in node:
+        yield f"{tname}.weight_q", _oihw(_tensor(node["kernel_q"]))
+        for leaf in ("scale", "bias", "act_scale"):
+            if leaf in node:
+                yield f"{tname}.{leaf}", _tensor(node[leaf])
+        return
+    yield f"{tname}.weight", _oihw(_tensor(node["kernel"]))
+    if bias:
+        yield f"{tname}.bias", _tensor(node["bias"])
+
+
+def params_from_jax(
+    params: Dict[str, Any], model_name: str = "vgg2016",
+    partial: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX model's ``params`` (the parameters
+    themselves, or an optax moment of them) -> {the port's parameter
+    name: tensor}, kernels HWIO -> OIHW. ``partial=True`` skips the
+    entries the tree lacks (a frozen backbone's moments)."""
+    out: Dict[str, torch.Tensor] = {}
+    for kind, tname, path in _FAMILIES[model_name][1]():
+        try:
+            node = _node(params, path)
+        except KeyError:
+            if partial:
+                continue
+            raise
+        if kind in ("conv_wb", "conv_w"):
+            out.update(_conv(node, tname, kind == "conv_wb"))
+        else:
+            out[f"{tname}.weight"] = _tensor(node["scale"])
+            out[f"{tname}.bias"] = _tensor(node["bias"])
+    return out
+
+
 def state_dict_from_jax(
     variables: Dict[str, Any], model_name: str = "vgg2016"
 ) -> Dict[str, torch.Tensor]:
     """The JAX package's whole variable tree (``params`` and, for the BN
-    families, ``batch_stats``; numpy arrays, flax HWIO kernels) -> the
-    port's ``state_dict`` (OIHW), with a ``num_batches_tracked`` of 0 for
-    every BN, as ``export_torch_checkpoint`` writes it."""
-    params = variables["params"]
+    families, ``batch_stats``; numpy arrays, flax HWIO kernels; float, or
+    int8 from its ``models/quant.py``) -> the port's ``state_dict``
+    (OIHW), with a ``num_batches_tracked`` of 0 for every BN, as
+    ``export_torch_checkpoint`` writes it."""
+    out = params_from_jax(variables["params"], model_name)
     stats = variables.get("batch_stats", {})
-    out: Dict[str, torch.Tensor] = {}
     for kind, tname, path in _FAMILIES[model_name][1]():
-        if kind in ("conv_wb", "conv_w"):
-            out[f"{tname}.weight"] = _oihw(_leaf(params, path + ("kernel",)))
-            if kind == "conv_wb":
-                out[f"{tname}.bias"] = _leaf(params, path + ("bias",))
-        else:
-            out[f"{tname}.weight"] = _leaf(params, path + ("scale",))
-            out[f"{tname}.bias"] = _leaf(params, path + ("bias",))
-            out[f"{tname}.running_mean"] = _leaf(stats, path + ("mean",))
-            out[f"{tname}.running_var"] = _leaf(stats, path + ("var",))
+        if kind == "bn":
+            node = _node(stats, path)
+            out[f"{tname}.running_mean"] = _tensor(node["mean"])
+            out[f"{tname}.running_var"] = _tensor(node["var"])
             out[f"{tname}.num_batches_tracked"] = torch.tensor(
                 0, dtype=torch.int64)
     return out
@@ -240,3 +289,13 @@ def import_imagenet_vgg19(
                                  f"match {target} {tuple(old.shape)}")
             out[target] = new.to(old.device)
     return out
+
+
+def load_flax_variables(
+    path: str, model_name: str = "vgg2016"
+) -> Dict[str, torch.Tensor]:
+    """A native checkpoint of the JAX package (a flax ``.msgpack`` of the
+    variable tree: float32, bfloat16, int8 or calibrated int8, as its
+    ``cli.export`` writes them), read without flax, as the port's
+    ``state_dict``."""
+    return state_dict_from_jax(read_flax_msgpack(path), model_name)

@@ -31,6 +31,8 @@ from torch_ekpose_tpu_torch.decode import api as decode_api
 from torch_ekpose_tpu_torch.decode import device as decode_device
 from torch_ekpose_tpu_torch.models.factory import (
     cast_params, get_model, init_model)
+from torch_ekpose_tpu_torch.models.quant import (
+    calibrate_act_scales, has_act_scales, quantize_variables)
 from torch_ekpose_tpu_torch.ops.resize import resize_image_np
 from torch_ekpose_tpu_torch.utils.human import Human
 
@@ -134,7 +136,15 @@ class PoseEstimator:
     ``state_dict=None`` initializes random weights from ``seed``.
     Parameters are cast to ``compute_dtype`` once, as the JAX package's
     ``cast_params`` does (BN running statistics stay float32). ``device`` is the card
-    unless the caller asks for another. ``decode_backend`` is one of
+    unless the caller asks for another.
+
+    ``compute_dtype="int8"`` or ``"int8_static"`` serves vgg2016's int8
+    variant (``models/quant.py``; bf16 between the int8 convs): a float
+    ``state_dict`` is quantized once, an int8 one (``cli.export``'s, the
+    port's or the JAX package's) is taken as it is. ``"int8_static"``
+    calibrates its activation scales with :meth:`calibrate`, or on the
+    first frames it serves, unless the ``state_dict`` carries calibrated
+    ``act_scale`` entries. ``decode_backend`` is one of
     ``decode/api.py``'s backends and decides how :meth:`estimate` decodes;
     the batched calls always decode on the device. Options the port does
     not have yet raise ``NotImplementedError`` instead of being ignored.
@@ -155,14 +165,13 @@ class PoseEstimator:
         s2d_blocks: int = 0,
         seed: int = 0,
     ):
-        if compute_dtype in ("int8", "int8_static"):
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP Queue 1 item 6)"
-            )
-        if compute_dtype not in (torch.float32, torch.bfloat16):
+        quantize = {"int8": True, "int8_static": "static"}.get(
+            compute_dtype, False) if isinstance(compute_dtype, str) else False
+        if not quantize and compute_dtype not in (torch.float32,
+                                                  torch.bfloat16):
             raise ValueError(
-                f"compute_dtype must be torch.float32 or torch.bfloat16, "
-                f"got {compute_dtype!r}"
+                f"compute_dtype must be torch.float32, torch.bfloat16, "
+                f"'int8' or 'int8_static', got {compute_dtype!r}"
             )
         if decode_backend not in decode_api.BACKENDS:
             raise ValueError(
@@ -174,6 +183,8 @@ class PoseEstimator:
         self.model_name = model_name
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        #: the activations' dtype: bf16 between an int8 model's convs
+        self.act_dtype = torch.bfloat16 if quantize else compute_dtype
         self.precision = precision
         self.preprocess = preprocess
         self.dest_size = dest_size
@@ -183,30 +194,69 @@ class PoseEstimator:
         if state_dict is None:
             model = init_model(
                 model_name, generator=torch.Generator().manual_seed(seed),
-                device=self.device, s2d_blocks=s2d_blocks,
+                device=self.device, s2d_blocks=s2d_blocks, quantize=quantize,
             )
+            calibrated = False
         else:
             model = get_model(
-                model_name, device=self.device, s2d_blocks=s2d_blocks
+                model_name, device=self.device, s2d_blocks=s2d_blocks,
+                quantize=quantize,
             )
+            # a state_dict with act_scale entries is a calibrated static
+            # checkpoint: do not calibrate again on arbitrary first frames
+            calibrated = has_act_scales(state_dict)
+            if quantize:
+                state_dict = quantize_variables(state_dict, model)
             model.load_state_dict(state_dict, strict=True)
+        #: static int8 scales still to measure (on the first frames served)
+        self._needs_calib = quantize == "static" and not calibrated
         # cast once: halves weight traffic and drops per-call casts
-        self.model = cast_params(model, compute_dtype).eval()
+        self.model = cast_params(model, self.act_dtype).eval()
         self._decode = decode_device.build_packed_decoder(self.config)
+
+    # -- static int8 calibration ------------------------------------------
+
+    def _model_input(self, images) -> torch.Tensor:
+        """[B, H, W, 3] frames (numpy or tensor) -> the model's NCHW input
+        in the activation dtype, on the device."""
+        x = torch.as_tensor(np.ascontiguousarray(images)).to(
+            self.device, non_blocking=True
+        )
+        x = nhwc_to_nchw(preprocess(x, self.preprocess))
+        return x.to(self.act_dtype, memory_format=torch.contiguous_format)
+
+    @torch.inference_mode()
+    def calibrate(self, image_batches) -> None:
+        """Measure the static int8 activation scales (``int8_static``) on
+        representative PADDED frames: an iterable of [H, W, 3] or
+        [B, H, W, 3] arrays. Each quantized conv's scale becomes the
+        largest ``|input|`` seen over all batches / 127 (the JAX package's
+        ``PoseEstimator.calibrate``). Called with the first frames served
+        if never called."""
+        if self.compute_dtype != "int8_static":
+            raise RuntimeError(
+                "calibrate() applies to compute_dtype='int8_static' only")
+
+        def inputs():
+            for images in image_batches:
+                images = np.asarray(images)
+                yield self._model_input(
+                    images[None] if images.ndim == 3 else images)
+
+        with precision_mode(self.precision):
+            calibrate_act_scales(self.model, inputs())
+        self._needs_calib = False
 
     # -- device program ----------------------------------------------------
 
     @torch.inference_mode()
     def _forward(self, images: np.ndarray):
         """Frames -> stage-6 (paf, heatmap) as float32 NCHW on the device."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(
-            self.device, non_blocking=True
-        )
-        x = nhwc_to_nchw(preprocess(x, self.preprocess))
+        if self._needs_calib:
+            self.calibrate([images])
+        x = self._model_input(images)
         with precision_mode(self.precision):
-            (paf, heatmap), _ = self.model(x.to(
-                self.compute_dtype, memory_format=torch.contiguous_format
-            ))
+            (paf, heatmap), _ = self.model(x)
         return paf.float(), heatmap.float()
 
     @torch.inference_mode()

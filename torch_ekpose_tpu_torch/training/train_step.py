@@ -22,10 +22,12 @@ use by a cast autograd sees (``models/heads.py::run_unit``), not by
 weight, bias and statistics stay float32. TF32 is off for cuDNN and
 matmuls throughout, so float32 stays float32.
 
+With ``targets="raw"`` the whole augmentation chain runs on the device
+too (``data/device_aug.py``), from decode-only uint8 canvases, before the
+targets and the step.
+
 The JAX package's ``TrainState``/``create_train_state`` have no
-counterpart: the module and the optimizer hold the state. ``--targets
-raw`` (on-device augmentation) is not ported yet (ROADMAP Queue 1 item
-5b).
+counterpart: the module and the optimizer hold the state.
 """
 
 from __future__ import annotations
@@ -73,15 +75,12 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _check_targets(targets: str, grid) -> None:
-    if targets == "raw":
-        raise NotImplementedError(
-            "targets='raw' (on-device augmentation) is not ported yet "
-            "(ROADMAP Queue 1 item 5b)")
-    if targets not in ("device", "host"):
-        raise ValueError(f"unknown targets mode {targets!r}")
-    if targets == "device" and grid is None:
-        raise ValueError("targets='device' requires grid=(gy, gx)")
+def _check_targets(targets: str, grid, modes=("device", "host")) -> None:
+    if targets not in modes:
+        raise ValueError(f"unknown targets mode {targets!r}; expected one "
+                         f"of {modes}")
+    if targets != "host" and grid is None:
+        raise ValueError(f"targets={targets!r} requires grid=(gy, gx)")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -137,7 +136,13 @@ def make_train_step(
     ``targets="host"``: ``step(images, heatmaps, pafs)``.
     ``targets="device"``: ``step(images, keypoints)`` — targets are
     rasterized on the device; ``grid`` is (gy, gx).
-    Either returns the logs: the 16 series of :func:`cpm_loss` and
+    ``targets="raw"``: ``step(canvases_u8, valid_hw, keypoints,
+    generator)`` — each image's augmentation is drawn from the
+    ``torch.Generator`` and applied on the device
+    (``data/device_aug.py::augment_batch``, output ``grid * stride``
+    square), then the device targets and the step (the JAX package's
+    ``step_raw``).
+    Each returns the logs: the 16 series of :func:`cpm_loss` and
     ``Loss``, as 0-dim tensors on the device.
 
     ``grad_accum=N``: the batch splits into N micro-batches, run in
@@ -148,8 +153,9 @@ def make_train_step(
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    _check_targets(targets, grid)
-    prepare = _targets_fn(targets, grid, stride, sigma)
+    _check_targets(targets, grid, ("device", "host", "raw"))
+    prepare = _targets_fn("device" if targets == "raw" else targets, grid,
+                          stride, sigma)
     cast = None if compute_dtype == torch.float32 else compute_dtype
 
     def micro(images, heat_t, paf_t):
@@ -185,7 +191,18 @@ def make_train_step(
             optimizer.step()
         return logs
 
-    return step
+    if targets != "raw":
+        return step
+    from torch_ekpose_tpu_torch.data.device_aug import augment_batch
+
+    out_size = grid[0] * stride
+
+    def step_raw(canvases_u8, valid_hw, keypoints, generator):
+        images, kpts = augment_batch(canvases_u8, valid_hw, keypoints,
+                                     generator, out_size=out_size)
+        return step(images, kpts)
+
+    return step_raw
 
 
 def make_eval_step(
@@ -199,7 +216,8 @@ def make_eval_step(
 ):
     """Validation loss step (reference train.py:395-430, no backward):
     the model in eval mode (BN on its running statistics), the same
-    arguments and logs as :func:`make_train_step`'s step."""
+    arguments and logs as :func:`make_train_step`'s step. Validation
+    never augments, so there is no ``"raw"`` mode."""
     _check_targets(targets, grid)
     prepare = _targets_fn(targets, grid, stride, sigma)
     cast = None if compute_dtype == torch.float32 else compute_dtype

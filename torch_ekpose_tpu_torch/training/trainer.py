@@ -9,7 +9,18 @@ on one card. The JAX package's multi-host consensus, data-parallel mesh,
 ZeRO-1 and spatial sharding are not ported (ROADMAP Queue 1 item 7).
 Batches are uploaded from pinned host memory with ``non_blocking=True``
 and the per-batch loss accumulates on the device, so the loop reads the
-device once per epoch.
+device once per epoch. With ``targets="raw"`` the training batches are
+decode-only canvases augmented on the device, each batch's draws from a
+generator seeded by (seed, epoch, batch), so a resumed run draws the
+same augmentation; validation stays on device targets.
+
+:meth:`Trainer.restore` reads the port's own checkpoints and the JAX
+package's flax ``.ckpt`` (``runtime/flax_msgpack.py``, no flax needed):
+its ``params``/``batch_stats`` through the weight bridge, and its optax
+state (``inject_hyperparams(chain(add_decayed_weights, adam))``,
+optionally under ``multi_transform`` for the frozen backbone) onto
+``torch.optim.Adam``: ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``,
+``count`` -> ``step``, ``learning_rate`` -> the groups' ``lr``.
 """
 
 from __future__ import annotations
@@ -21,10 +32,14 @@ import time
 import zipfile
 from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from torch_ekpose_tpu_torch.config import Config, cfg as default_cfg
 from torch_ekpose_tpu_torch.models.factory import get_model, init_model
+from torch_ekpose_tpu_torch.runtime.checkpoint import (
+    params_from_jax, state_dict_from_jax)
+from torch_ekpose_tpu_torch.runtime.flax_msgpack import read_flax_msgpack
 from torch_ekpose_tpu_torch.training.metrics import (
     AverageMeter,
     MetricsWriter,
@@ -38,15 +53,7 @@ from torch_ekpose_tpu_torch.training.train_step import (
     set_learning_rate,
 )
 
-__all__ = ["Trainer", "read_checkpoint"]
-
-#: what a flax checkpoint of the JAX package gets instead of a load
-FLAX_REFUSAL = (
-    "{path} is not a checkpoint of the port's trainer (a torch.save zip "
-    "archive): a flax .ckpt/.msgpack of the JAX package needs the flax "
-    "reader, which is not ported yet (ROADMAP Queue 1 item 5b); the JAX "
-    "package's runtime.export_torch_checkpoint writes a .pth the port reads"
-)
+__all__ = ["Trainer", "aug_generator", "read_checkpoint"]
 
 
 def _resolve_device(device) -> torch.device:
@@ -62,10 +69,25 @@ def _resolve_device(device) -> torch.device:
 
 def read_checkpoint(path: str, device="cpu") -> dict:
     """The payload :meth:`Trainer.save` wrote to ``path`` (tensors on
-    ``device``); a flax checkpoint exits with :data:`FLAX_REFUSAL`."""
+    ``device``), or the JAX package's trainer payload (a flax msgpack:
+    nested dicts of numpy arrays) where ``path`` is not a torch zip."""
     if not zipfile.is_zipfile(path):
-        raise SystemExit(FLAX_REFUSAL.format(path=path))
+        return read_flax_msgpack(path)
     return torch.load(path, map_location=device, weights_only=True)
+
+
+def aug_generator(seed: int, epoch: int, batch: int) -> torch.Generator:
+    """The CPU generator of one raw-mode batch's augmentation draws,
+    seeded by (seed, epoch, batch) (the JAX package folds the same three
+    into its key), so a resumed epoch draws what it drew before."""
+    state = np.random.SeedSequence([seed, 0x7261, epoch, batch])
+    return torch.Generator().manual_seed(
+        int(state.generate_state(1, np.uint64)[0]))
+
+
+def _python(value):
+    """A 0-d numpy leaf of a flax payload as a Python number."""
+    return value.item() if hasattr(value, "item") else value
 
 
 class Trainer:
@@ -112,9 +134,12 @@ class Trainer:
             self.model, self.optimizer, targets=targets, grid=grid,
             grad_accum=grad_accum, compute_dtype=compute_dtype,
         )
+        # raw mode augments TRAINING batches on the device; validation
+        # never augments, so its loader serves device-target items
+        self.targets = targets
         self.eval_step = make_eval_step(
-            self.model, targets=targets, grid=grid,
-            compute_dtype=compute_dtype,
+            self.model, targets="device" if targets == "raw" else targets,
+            grid=grid, compute_dtype=compute_dtype,
         )
         self.scheduler = ReduceLROnPlateau(
             tc.lr, factor=tc.lr_factor, patience=tc.lr_patience
@@ -160,7 +185,11 @@ class Trainer:
                 break
             data_time.update(time.time() - end)
             batch = self._upload(batch)
-            if train:
+            if train and self.targets == "raw":
+                logs = self.train_step(*batch, aug_generator(
+                    self.config.TRAIN.seed, self.epoch, n_batches))
+                self.step += 1
+            elif train:
                 logs = self.train_step(*batch)
                 self.step += 1
             else:
@@ -317,15 +346,62 @@ class Trainer:
         }, path)
 
     def restore(self, path: str) -> None:
-        """Load what :meth:`save` wrote: parameters, BN statistics and
-        optimizer state come back bitwise."""
+        """Load what :meth:`save` wrote (parameters, BN statistics and
+        optimizer state come back bitwise), or a JAX trainer's flax
+        ``.ckpt`` (:meth:`_restore_flax`)."""
         payload = read_checkpoint(path, self.device)
-        self.model.load_state_dict(payload["model"], strict=True)
-        self.optimizer.load_state_dict(payload["optimizer"])
-        self.step = int(payload["step"])
-        self.epoch = int(payload["epoch"])
-        self.best_val = float(payload["best_val"])
-        self.scheduler.load_state_dict(payload["scheduler"])
+        if not {"model", "opt_state"} & set(payload):
+            raise SystemExit(
+                f"{path} is not a trainer checkpoint: it holds "
+                f"{sorted(payload)}, neither the port's 'model' nor the "
+                "JAX package's 'opt_state'")
+        if "model" in payload:
+            self.model.load_state_dict(payload["model"], strict=True)
+            self.optimizer.load_state_dict(payload["optimizer"])
+        else:
+            self._restore_flax(payload)
+        self.step = int(_python(payload["step"]))
+        self.epoch = int(_python(payload["epoch"]))
+        self.best_val = float(_python(payload["best_val"]))
+        self.scheduler.load_state_dict(
+            {k: _python(v) for k, v in payload["scheduler"].items()})
         self.train_curve = {
-            k: list(v) for k, v in payload["train_curve"].items()
+            k: [float(_python(x)) for x in v]
+            for k, v in payload["train_curve"].items()
         }
+
+    def _restore_flax(self, payload: dict) -> None:
+        """The JAX trainer's ``params``, ``batch_stats`` and optax state
+        (``torch_ekpose_tpu/training/trainer.py::save``) into the model
+        and ``torch.optim.Adam``. The moments must cover exactly the
+        parameters this optimizer trains (a frozen-backbone state only a
+        ``freeze_backbone`` trainer)."""
+        self.model.load_state_dict(
+            state_dict_from_jax(payload, self.model_name), strict=True)
+        opt = payload["opt_state"]
+        if "inner_states" in opt:               # multi_transform (frozen)
+            opt = opt["inner_states"]["train"]["inner_state"]
+        adam = opt["inner_state"]["1"]["0"]     # chain(decay, adam)[1]
+        mu = params_from_jax(adam["mu"], self.model_name, partial=True)
+        nu = params_from_jax(adam["nu"], self.model_name, partial=True)
+        params = dict(self.model.named_parameters())
+        trained = {id(p) for g in self.optimizer.param_groups
+                   for p in g["params"]}
+        names = {n for n, p in params.items() if id(p) in trained}
+        if set(mu) != names:
+            raise ValueError(
+                f"the checkpoint's Adam moments cover {len(mu)} parameters, "
+                f"this optimizer trains {len(names)} (a frozen-backbone "
+                "state needs freeze_backbone=True, and the other way round)")
+        step = float(_python(adam["count"]))
+        self.optimizer.state.clear()
+        for name in names:
+            param = params[name]
+            self.optimizer.state[param] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": mu[name].to(param.device, param.dtype),
+                "exp_avg_sq": nu[name].to(param.device, param.dtype),
+            }
+        set_learning_rate(
+            self.optimizer,
+            float(_python(opt["hyperparams"]["learning_rate"])))
