@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving path, VGG prefix path, every model,
-training, int8 serving and on-card augmentation on one CUDA card.
+training, int8 serving, on-card augmentation and the parallel layer on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -182,7 +183,24 @@ Phases (any failure raises and exits non-zero):
     --square_size 368 -e 2 --n-images 512 --targets raw`` in bf16, without
     and with ``--raw-cache``, the second epoch's images/s and DataTime
     beside phase 12(b)'s ``--targets device`` run, BatchTime beside the
-    raw step alone.
+    raw step alone;
+14. the parallel layer (``parallel/``; no kernel of its own) on the one
+    card, named twice where a mesh needs two devices: (a)
+    ``ShardedPoseEstimator`` over ``[cuda:0, cuda:0]``, vgg2016 bf16 at
+    batch 8, 368x432, with a peaky head (``inputs.peaky_head_``): people
+    equal, image by image, to ``PoseEstimator.estimate_batch`` on each
+    shard's frames, each decode kernel launched once a shard, and the
+    ms of both; (b) ``SpatialPoseEstimator`` with 2 stripes on
+    ``[cuda:0, cuda:0]``, float32 with TF32 off: the maps against the
+    one-device forward within ``SPATIAL_TOL`` of max|maps|, ``estimate``
+    decoding people on the first device (each decode kernel once), and
+    the ms of both; (c) 2 float64 SGD steps of mobilenet_thin (BN) at 368
+    on a global batch of 4 by two ranks sharing ``cuda:0`` over gloo and by
+    one rank over NCCL against one process, and 2 Adam steps with
+    ``--zero1`` against plain Adam in the same group; (d) ``cli.train
+    --num-devices 1 --gpus 0 --zero1`` (a one-rank NCCL group, joined on
+    the trainer's card) and ``cli.eval
+    --num-devices 1``.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -2007,6 +2025,297 @@ def check_export(torch, kernels, tmp: str) -> None:
                              "through the decode kernels")
 
 
+#: phase 14: one card named twice, where a mesh needs two devices
+TWICE = ("cuda:0", "cuda:0")
+#: phase 14(b): the split float32 forward against the one-device one
+#: (TF32 off), as a share of max|maps|: cuDNN sums other shapes in
+#: another order (phase 11's card-vs-CPU gate)
+SPATIAL_TOL = 1e-4
+#: phase 14(c): a step's loss against one process (relative), and the
+#: parameters after 2 SGD steps (largest difference over the largest
+#: update), in float64: BN's float32 gradients are ill-conditioned on
+#: any stack (``tests/test_torch_train_bn.py``), so a batch summed in
+#: another order moves them by more than a split can be held to
+DP_LOSS_RTOL, DP_PARAM_SHARE = 1e-5, 1e-4
+DP_NAME, DP_SIZE, DP_BATCH = "mobilenet_thin", 368, 4
+
+
+def _canon(humans) -> list:
+    """People as sorted (part, x, y, score) tuples, to compare two calls."""
+    return sorted(
+        sorted((p, round(bp.x, 6), round(bp.y, 6), round(bp.score, 5))
+               for p, bp in h.body_parts.items())
+        for h in humans)
+
+
+def check_sharded(torch, prof, kernels, inputs, rng):
+    """Phase 14(a): batch-sharded serving over the card named twice."""
+    from torch_ekpose_tpu_torch.parallel import (
+        ShardedPoseEstimator, make_mesh)
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    frames = rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    one = PoseEstimator("vgg2016", device="cuda",
+                        compute_dtype=torch.bfloat16, seed=SEED)
+    inputs.peaky_head_(one, frames)
+    sharded = ShardedPoseEstimator(
+        "vgg2016", one.model.state_dict(), mesh=make_mesh(devices=TWICE),
+        compute_dtype=torch.bfloat16)
+    half = BATCH // 2
+    with warnings.catch_warnings():    # saturated peak and person tables
+        warnings.simplefilter("ignore", RuntimeWarning)
+        sharded.estimate_batch(frames)                   # warm-up
+        want = (one.estimate_batch(frames[:half])
+                + one.estimate_batch(frames[half:]))
+        whole = one.estimate_batch(frames)
+        got, launches = counted(kernels,
+                                lambda: sharded.estimate_batch(frames))
+        ms_sharded, ms_one = prof.turns(
+            [lambda: sharded.estimate_batch(frames),
+             lambda: one.estimate_batch(frames)], 5)
+    same = [_canon(a) == _canon(b) for a, b in zip(got, want)]
+    same_whole = sum(_canon(a) == _canon(b) for a, b in zip(got, whole))
+    people = [len(h) for h in got]
+    print(f"14(a) ShardedPoseEstimator over {list(TWICE)}, vgg2016 bf16, "
+          f"batch {BATCH} at {HEIGHT}x{WIDTH}, peaky head: people per image "
+          f"{people}, equal to PoseEstimator on each shard's frames "
+          f"{sum(same)}/{BATCH} (to its batch-{BATCH} call {same_whole}/"
+          f"{BATCH}), kernel launches {launches} ({len(TWICE)} shards); "
+          f"{ms_sharded:.3f} ms against {ms_one:.3f} ms on one device "
+          f"(CUDA events, mean of 5 in turns), on {prof.card_line()}")
+    if not all(same) or min(people) < 1 or set(launches.values()) != {
+            len(TWICE)}:
+        raise AssertionError("the sharded estimator differs from "
+                             "PoseEstimator, found no people, or did not "
+                             "decode once a shard")
+
+
+def check_spatial(torch, prof, kernels, inputs, rng):
+    """Phase 14(b): height-split inference over the card named twice."""
+    from torch_ekpose_tpu_torch.parallel import (
+        SpatialPoseEstimator, make_mesh)
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    image = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    one = PoseEstimator("vgg2016", device="cuda",
+                        compute_dtype=torch.float32, precision="highest",
+                        seed=SEED)
+    sp = SpatialPoseEstimator(
+        "vgg2016", one.model.state_dict(), mesh=make_mesh(devices=TWICE),
+        compute_dtype=torch.float32, precision="highest")
+    im_pad, _ = sp.pad(image)
+    inputs.peaky_head_(one, im_pad[None])
+    sp.model.load_state_dict(one.model.state_dict())
+    err = 0.0
+    for got, want in zip(sp._forward(im_pad[None]),
+                         one._forward(im_pad[None])):
+        err = max(err, float((got - want).abs().max() / want.abs().max()))
+    with warnings.catch_warnings():    # saturated peak and person tables
+        warnings.simplefilter("ignore", RuntimeWarning)
+        (humans, _), launches = counted(kernels, lambda: sp.estimate(image))
+        want = one.estimate_batch(im_pad[None])[0]
+        ms_sp, ms_one = prof.turns([lambda: sp.estimate(image),
+                                    lambda: one.estimate_batch(
+                                        im_pad[None])], 5)
+    print(f"14(b) SpatialPoseEstimator, 2 stripes over {list(TWICE)}, "
+          f"vgg2016 float32 (TF32 off), {image.shape[0]}x{image.shape[1]} "
+          f"padded to {im_pad.shape[0]}x{im_pad.shape[1]}: maps vs one "
+          f"device max|diff|/max|maps| {err:.3e} (gate {SPATIAL_TOL}), "
+          f"people {len(humans)} (one device {len(want)}, equal "
+          f"{_canon(humans) == _canon(want)}), kernel launches {launches}; "
+          f"estimate {ms_sp:.3f} ms against one device's {ms_one:.3f} ms "
+          f"(CUDA events, mean of 5 in turns), on {prof.card_line()}")
+    if err > SPATIAL_TOL or not humans or set(launches.values()) != {1}:
+        raise AssertionError("the split forward differs from one device, "
+                             "or its decode found no people")
+
+
+def dp_steps(torch, case: dict, device: str) -> dict:
+    """2 SGD steps of ``DP_NAME`` in float64 on this rank's slice of the
+    global batch (one process: all of it), then 2 Adam steps, and with a
+    process group 2 ZeRO-1 steps: {"sgd": (losses, state), "adam": ...,
+    "zero1": ...}. With a group the forward runs through DDP and BN
+    reduces over it."""
+    import torch.distributed as dist
+
+    from torch_ekpose_tpu_torch.models.factory import get_model
+    from torch_ekpose_tpu_torch.models.layers import sync_batch_norm
+    from torch_ekpose_tpu_torch.parallel import (
+        process_count, process_index, shard_batch)
+    from torch_ekpose_tpu_torch.training.train_step import (
+        make_optimizer, make_train_step)
+
+    world, rank = process_count(), process_index()
+    images, kpts = (torch.from_numpy(a).to(device) for a in shard_batch(
+        case["batch"], rank, world))
+    images = images.double()
+    kinds = ("sgd", "adam", "zero1") if dist.is_initialized() else (
+        "sgd", "adam")
+    out = {}
+    for kind in kinds:
+        model = get_model(DP_NAME, device=device)
+        model.load_state_dict(case["state"])
+        model.double()
+        forward = model
+        if dist.is_initialized():
+            sync_batch_norm(model, dist.group.WORLD)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", FutureWarning)
+                forward = torch.nn.parallel.DistributedDataParallel(
+                    model, broadcast_buffers=False, device_ids=(
+                        [torch.device(device)] if device != "cpu" else None))
+        opt = (torch.optim.SGD(model.parameters(), lr=1e-4) if kind == "sgd"
+               else make_optimizer(model, 1e-4, 5e-4, zero1=kind == "zero1"))
+        step = make_train_step(model, opt, targets="device",
+                               grid=(DP_SIZE // 8,) * 2, forward=forward)
+        losses = []
+        for _ in range(2):
+            loss = step(images, kpts)["Loss"].detach().double().reshape(1)
+            if world > 1:
+                loss = loss.cpu() if dist.get_backend() == "gloo" else loss
+                dist.all_reduce(loss)
+            losses.append(float(loss) / world)
+        out[kind] = (losses, {k: v.detach().cpu().clone()
+                              for k, v in model.state_dict().items()})
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One gloo rank of phase 14(c) on ``cuda:0`` (a spawned process)."""
+    import torch
+
+    from torch_ekpose_tpu_torch.parallel import init_distributed
+
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    import torch.distributed as dist
+
+    case = torch.load(os.path.join(work, "case.pt"), weights_only=False)
+    out = dp_steps(torch, case, "cuda:0")
+    if rank == 0:
+        torch.save(out, os.path.join(work, "gloo.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _param_share(got: dict, want: dict, start: dict) -> float:
+    """Largest parameter difference over the largest update."""
+    keys = [k for k in want if want[k].is_floating_point()]
+    diff = max(float((got[k] - want[k]).abs().max()) for k in keys)
+    moved = max(float((want[k] - start[k]).abs().max()) for k in keys)
+    return diff / moved
+
+
+def check_data_parallel(torch, prof, inputs, work: str) -> None:
+    """Phase 14(c): DP steps on the card against one process."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from torch_ekpose_tpu_torch.models.factory import get_model
+    from torch_ekpose_tpu_torch.parallel import init_distributed
+
+    state = inputs.working_state_dict(get_model(DP_NAME, device="cpu"), 0)
+    case = {"state": state, "batch": inputs.train_batch(
+        np.random.default_rng(3), DP_BATCH, DP_SIZE)}
+    torch.save(case, os.path.join(work, "case.pt"))
+    t0 = time.perf_counter()
+    one = dp_steps(torch, case, "cuda:0")
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank, args=(2, free_port(), work), nprocs=2,
+                       start_method="spawn")
+    t_gloo = time.perf_counter() - t0
+    gloo = torch.load(os.path.join(work, "gloo.pt"), weights_only=False)
+    t0 = time.perf_counter()
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        nccl = dp_steps(torch, case, "cuda:0")
+    finally:
+        dist.destroy_process_group()
+    t_nccl = time.perf_counter() - t0
+    bad = []
+    for label, run, secs in (("2 ranks, gloo", gloo, t_gloo),
+                             ("1 rank, NCCL", nccl, t_nccl)):
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+            run["sgd"][0], one["sgd"][0]))
+        share = _param_share(run["sgd"][1], one["sgd"][1], state)
+        zero = _param_share(run["zero1"][1], run["adam"][1], state)
+        print(f"14(c) {DP_NAME} at {DP_SIZE}, global batch {DP_BATCH}, "
+              f"{label} ({secs:.1f} s with start-up; one process "
+              f"{t_one:.1f} s): SGD losses {run['sgd'][0]} against "
+              f"{one['sgd'][0]} (rel err {loss_err:.2e}), params after 2 "
+              f"steps max|diff|/max|update| {share:.2e}; ZeRO-1 vs Adam "
+              f"losses {run['zero1'][0]} / {run['adam'][0]}, params "
+              f"{zero:.2e}, on {prof.card_line()}")
+        if loss_err > DP_LOSS_RTOL or share > DP_PARAM_SHARE \
+                or zero > DP_PARAM_SHARE:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"data-parallel steps differ from one process "
+                             f"({bad})")
+
+
+def check_parallel_clis(torch, prof, rng, inputs, data: str,
+                        tmp: str) -> None:
+    """Phase 14(d): the flags through the command lines on one card."""
+    from torch_ekpose_tpu_torch.cli import eval as cli_eval
+
+    t0 = time.perf_counter()
+    trainer, _, _ = run_train_cli(torch, [
+        "-m", DP_NAME, "-d", "synth", "--data-dir", data, "--square_size",
+        str(DP_SIZE), "-b", "8", "-e", "1", "--n-images", "16",
+        "--workers", "0", "--loader-mode", "thread", "--dtype", "bfloat16",
+        "--num-devices", "1", "--gpus", "0", "--zero1", "--save_epoch", "1",
+        "--out-dir", os.path.join(tmp, "zero1_out")],
+        os.path.join(tmp, "zero1_logs"))
+    saved = torch.load(os.path.join(tmp, "zero1_out", "epoch_0.ckpt"),
+                       weights_only=False)
+    n_params = sum(1 for p in trainer.model.parameters())
+    # the NCCL group's device (set when it was joined) is the card the
+    # trainer holds its parameters on
+    joined = torch.cuda.current_device()
+    print(f"14(d) cli.train -m {DP_NAME} --num-devices 1 --gpus 0 --zero1 "
+          f"(a one-rank NCCL group joined on cuda:{joined}, parameters on "
+          f"{trainer.device}): {trainer.step} steps in "
+          f"{time.perf_counter() - t0:.1f} s, checkpoint Adam state for "
+          f"{len(saved['optimizer']['state'])}/{n_params} parameters, "
+          f"on {prof.card_line()}")
+    if len(saved["optimizer"]["state"]) != n_params or trainer.step < 1:
+        raise AssertionError("cli.train --zero1 did not train or save the "
+                             "whole Adam state")
+    if trainer.device != torch.device("cuda", joined):
+        raise AssertionError(f"the NCCL group joined on cuda:{joined}, the "
+                             f"trainer trains on {trainer.device}")
+    root = os.path.join(tmp, "eval14")
+    write_coco_tree(root, rng, inputs, n=8)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_eval.main(["-d", "coco", "--data-dir", root, "--num-devices",
+                       "1", "--seed", str(SEED)])
+    line = [x for x in out.getvalue().splitlines() if "AP@OKS" in x]
+    print(f"14(d) cli.eval --num-devices 1 on 8 PNG frames: {line}")
+    if not line:
+        raise AssertionError("cli.eval --num-devices 1 printed no AP")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_parallel(torch, prof, kernels, inputs, data: str, tmp: str):
+    """Phase 14: the parallel layer on the one card."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    check_sharded(torch, prof, kernels, inputs, rng)
+    check_spatial(torch, prof, kernels, inputs, rng)
+    check_data_parallel(torch, prof, inputs, tmp)
+    check_parallel_clis(torch, prof, rng, inputs, data, tmp)
+    print(f"phase 14 in {time.perf_counter() - t0:.1f} s")
+
+
 def load_script(name: str):
     """``scripts/<name>.py``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -2074,6 +2383,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data, rates = check_training(torch, inputs, tmp)
         check_raw_training(torch, data, rates, aug_ms, tmp)
+        check_parallel(torch, prof, kernels, inputs, data, tmp)
 
     kernels += convs
     for rec in kernels:

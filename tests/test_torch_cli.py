@@ -185,19 +185,37 @@ def test_refused_options(main, argv, error, needle):
 
 @pytest.mark.parametrize("main,argv", [
     (run_image.main, ["--s2d-blocks", "1", "-i", "x.png"]),
-    (run_image.main, ["--num-devices", "2", "-i", "x.png"]),
-    (cli_eval.main, ["--num-devices", "4", "-d", "coco"]),
     (cli_eval.main, ["--compilation-cache", "/tmp/c", "-d", "coco"]),
     (serve.main, ["--s2d-blocks", "1"]),
-], ids=["s2d", "num_devices_image", "num_devices_eval", "compilation_cache",
-        "s2d_serve"])
+], ids=["s2d", "compilation_cache", "s2d_serve"])
 def test_flags_the_port_leaves_out_are_unknown(main, argv, capsys):
-    """The JAX CLI's TPU and mesh flags are not in the port's parsers, so
-    argparse refuses them before anything is built."""
+    """The JAX CLI's TPU flags are not in the port's parsers, so argparse
+    refuses them before anything is built."""
     with pytest.raises(SystemExit) as exit_:
         main(["--device", "cpu"] + argv)
     assert exit_.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("main,argv,needle", [
+    (run_image.main, ["--num-devices", "2", "-a", "-i", "x.png"],
+     "--analyze is single-device only"),
+    (cli_eval.main, ["--num-devices", "4", "-b", "6", "-d", "coco"],
+     "--batch 6 must be a multiple of --num-devices 4"),
+    (cli_eval.main, ["--num-devices", "4", "-b", "8", "-d", "coco"],
+     "--num-devices 4: 4 devices asked for, but only 3"),
+], ids=["num_devices_image", "num_devices_eval", "num_devices_visible"])
+def test_mesh_flags_refuse_what_cannot_run(monkeypatch, main, argv, needle):
+    """``--num-devices`` (``parallel/``) runs where it can
+    (``tests/test_torch_parallel_cli.py``) and exits naming the reason
+    where it cannot: ``--analyze`` over a split image, a batch that does
+    not shard evenly, more devices than are visible."""
+    from torch_ekpose_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "cuda_devices", lambda: [
+        torch.device("cuda", i) for i in range(3)])
+    with pytest.raises(SystemExit, match=needle):
+        main(["--device", "cuda"] + argv)
 
 
 @pytest.mark.parametrize("backend,ok", [

@@ -160,7 +160,9 @@ def test_server_concurrent_submits(server):
 #: modules the port gained with on-card augmentation, the flax reader and
 #: int8 serving; the import check must reach each
 NEW_MODULES = ("cli.export", "data.device_aug", "data.raw_cache",
-               "decode.legacy", "models.quant", "runtime.flax_msgpack")
+               "decode.legacy", "models.quant", "runtime.flax_msgpack",
+               "parallel", "parallel.mesh", "parallel.inference",
+               "parallel.spatial")
 
 
 def test_port_imports_without_jax():
@@ -192,6 +194,7 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("path", ["chip_smoke.py",
                                   "tests/torch_port_inputs.py",
+                                  "tests/torch_parallel_workers.py",
                                   "tests/test_torch_gpu.py",
                                   "scripts/profile_torch_conv.py",
                                   "scripts/profile_torch_decode.py",

@@ -6,10 +6,10 @@ Adam state back bitwise; a set ``preempted`` flag writes
 ``cli.train --device cpu`` runs end to end on rendered scenes (also from
 a torchvision-style VGG19 file through the frozen-backbone warmup, and
 with ``--targets raw`` with and without ``--raw-cache``, whose
-per-batch draws repeat across a resume); unported flags exit naming
-their ROADMAP item, and a flax file that is no trainer checkpoint exits
-saying so; with no card and no ``--device cpu`` training raises; the
-serving CLIs load a checkpoint the trainer wrote.
+per-batch draws repeat across a resume); the parallel flags validate
+(or exit naming why they cannot run), and a flax file that is no trainer
+checkpoint exits saying so; with no card and no ``--device cpu``
+training raises; the serving CLIs load a checkpoint the trainer wrote.
 """
 
 import json
@@ -236,21 +236,32 @@ def test_imagenet_import_matches_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--targets", "raw", "--num-processes", "2"], "item 7"),
-    (["--targets", "raw", "--raw-cache", "cache", "--num-devices", "2"],
-     "item 7"),
-    (["--zero1"], "item 7"),
-    (["--spatial", "2"], "item 7"),
-    (["--num-devices", "2"], "item 7"),
-    (["--gpus", "0,1"], "item 7"),
-    (["--coordinator", "localhost:1234"], "item 7"),
-    (["--num-processes", "2"], "item 7"),
+    (["--targets", "raw", "--num-processes", "2"],
+     "--num-processes / --process-id take --coordinator"),
+    (["--targets", "raw", "--raw-cache", "cache", "--num-devices", "2"], 2),
+    (["--zero1"], 1),
+    (["--spatial", "2"], "--spatial 2 must divide the 1-device run"),
+    (["--num-devices", "2"], 2),
+    (["--gpus", "0,1"], "--gpus 0,1 names CUDA devices"),
+    (["--coordinator", "localhost:1234"], 1),
+    (["--num-processes", "2"],
+     "--num-processes / --process-id take --coordinator"),
 ], ids=["raw", "raw_cache", "zero1", "spatial", "num_devices", "gpus",
         "coordinator", "num_processes"])
 def test_unported_flags_are_refused(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
-        cli_train.main(["-d", "synth", "--data-dir", str(tmp_path),
-                        "--logdir", str(tmp_path / "logs")] + flags)
+    """The JAX CLI's parallel flags (once refused here) and what stays
+    refused, validated before anything loads: an int is the number of
+    processes this host starts (``--device cpu``: gloo ranks), a string
+    the reason a combination exits. They train in
+    ``tests/test_torch_parallel_cli.py``."""
+    args = cli_train._parser().parse_args(
+        ["-d", "synth", "--device", "cpu", "--data-dir", str(tmp_path),
+         "--logdir", str(tmp_path / "logs")] + flags)
+    if isinstance(item, int):
+        assert cli_train.check_flags(args) == item
+    else:
+        with pytest.raises(SystemExit, match=item):
+            cli_train.check_flags(args)
 
 
 def test_jax_only_flag_is_unknown(tmp_path, capsys):
@@ -260,13 +271,16 @@ def test_jax_only_flag_is_unknown(tmp_path, capsys):
     assert "--compilation-cache" in capsys.readouterr().err
 
 
-def test_process_id_is_unknown(capsys):
-    """A multi-host launch line's rank is refused, not ignored: alone it
-    would start an independent run writing to the same --out-dir."""
-    with pytest.raises(SystemExit) as exc:
-        cli_train.main(["-d", "synth", "--process-id", "1"])
-    assert exc.value.code == 2
-    assert "--process-id" in capsys.readouterr().err
+def test_process_id_is_unknown(tmp_path):
+    """A multi-host launch line's rank without ``--coordinator`` is
+    refused, not ignored: alone it would start an independent run writing
+    to the same --out-dir; a rank outside ``--num-processes`` too."""
+    for flags in (["--process-id", "1"],
+                  ["--coordinator", "h:1", "--num-processes", "2",
+                   "--process-id", "2"]):
+        with pytest.raises(SystemExit, match="--process-id"):
+            cli_train.main(["-d", "synth", "--device", "cpu", "--logdir",
+                            str(tmp_path / "logs")] + flags)
 
 
 def test_flax_checkpoint_is_refused(tmp_path, data_dir):

@@ -28,7 +28,8 @@ from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
 __all__ = ["EVAL_IDS", "NMS_CASES", "NMS_THRESH", "ReplayMaps",
-           "SM90_CHAINS", "chain_arrays", "crowded_maps", "eval_dataset",
+           "SM90_CHAINS", "assert_states_close", "chain_arrays",
+           "crowded_maps", "eval_dataset",
            "draw_weight", "eval_rows", "match_scores", "merge_inputs",
            "nms_case", "nms_maps", "packed_mismatches", "peaky_head_",
            "replay_forward", "stats_mismatches", "train_batch",
@@ -420,10 +421,15 @@ def peaky_head_(estimator, frames: np.ndarray) -> None:
     (so the heatmaps are ~ N(PEAKY_HEAT_MEAN, PEAKY_HEAT_STD^2) noise,
     whose local maxima over the threshold are peaks), and the PAF BN's
     weight becomes 0 and its bias PEAKY_PAF, a field along which every
-    limb pointing right and down scores."""
+    limb pointing right and down scores. vgg2016's head has no BN: its
+    final heatmap conv is rescaled so to the same statistics
+    (:func:`_peaky_vgg_head_`)."""
     import torch
 
     model = estimator.model
+    if not hasattr(model.model6_2[-1], "bn"):
+        _peaky_vgg_head_(estimator, frames)
+        return
     heat_bn, paf_bn = model.model6_2[-1].bn, model.model6_1[-1].bn
     seen = []
     hook = heat_bn.register_forward_pre_hook(
@@ -441,6 +447,32 @@ def peaky_head_(estimator, frames: np.ndarray) -> None:
         paf_bn.bias.fill_(PEAKY_PAF)
 
 
+def _peaky_vgg_head_(estimator, frames: np.ndarray) -> None:
+    """:func:`peaky_head_` for vgg2016: each heatmap channel of the final
+    conv, ``W x + b``, becomes ``a (W x + b - mean) + PEAKY_HEAT_MEAN``
+    with ``a = PEAKY_HEAT_STD / std`` over ``frames`` (weights and bias
+    rescaled in the model's dtype), and the PAF's final conv gives the
+    constant field PEAKY_PAF."""
+    import torch
+
+    model = estimator.model
+    heat, paf = model.model6_2.final(), model.model6_1.final()
+    seen = []
+    hook = heat.register_forward_hook(
+        lambda module, args, out: seen.append(out.float()))
+    try:
+        estimator._forward(frames)
+    finally:
+        hook.remove()
+    mean = seen[0].mean((0, 2, 3))
+    scale = PEAKY_HEAT_STD / seen[0].std((0, 2, 3), unbiased=False)
+    with torch.no_grad():
+        heat.weight.copy_(heat.weight.float() * scale[:, None, None, None])
+        heat.bias.copy_((heat.bias.float() - mean) * scale + PEAKY_HEAT_MEAN)
+        paf.weight.zero_()
+        paf.bias.fill_(PEAKY_PAF)
+
+
 def train_batch(rng: np.random.Generator, batch: int, size: int,
                 people: int = 12):
     """A lockstep training problem: (images ``[B, size, size, 3]``
@@ -456,6 +488,20 @@ def train_batch(rng: np.random.Generator, batch: int, size: int,
     keypoints = np.zeros((batch, people, 18, 3), np.float32)
     keypoints[..., :2] = rng.uniform(0.0, size, (batch, people, 18, 2))
     keypoints[..., 2] = 2
+    return images, keypoints
+
+
+def sparse_batch(batch: int = 4, size: int = 64):
+    """The JAX package's data-parallel problem (its
+    ``tests/test_training.py``): N(0, 1) frames, one labeled person a
+    frame, its joints within 10 px of the edges. With the reference's init
+    the gradients stay small, so a batch split over ranks sums them in
+    another order within atol 1e-7 of one process after an SGD step."""
+    rng = np.random.default_rng(11)
+    images = rng.normal(0, 1, (batch, size, size, 3)).astype(np.float32)
+    keypoints = np.zeros((batch, 3, 18, 3), dtype=np.float32)
+    keypoints[:, 0, :, :2] = rng.uniform(10, size - 10, (batch, 18, 2))
+    keypoints[:, 0, :, 2] = 2
     return images, keypoints
 
 
@@ -486,6 +532,27 @@ def update_envelope(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
                  and out["max"] <= 2 * steps * lr + 1e-6
                  and out["median_update"] > 1e-5)
     return out
+
+
+def assert_states_close(got: dict, want: dict, rtol: float,
+                        atol: float) -> None:
+    """Every tensor of the state_dict ``got`` within ``atol + rtol *
+    |want|`` of ``want``'s (numpy's ``assert_allclose`` test, in the
+    tensors' own dtype: close values subtract exactly, and a 50M-element
+    vgg2016 state checks in a fraction of numpy's float64 time); numpy
+    reports the first tensor that misses."""
+    import torch
+
+    assert got.keys() == want.keys()
+    for key, ref in want.items():
+        value = got[key]
+        if not ref.is_floating_point():
+            assert torch.equal(value, ref), key
+            continue
+        if bool(((value - ref).abs() > atol + rtol * ref.abs()).any()):
+            np.testing.assert_allclose(value.double().numpy(),
+                                       ref.double().numpy(), rtol=rtol,
+                                       atol=atol, err_msg=key)
 
 
 def stats_mismatches(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],

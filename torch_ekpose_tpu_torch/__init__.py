@@ -18,10 +18,13 @@ COCO index (``data/coco.py``) and OKS evaluator
 else Pillow. ``data/`` and ``training/`` train one model on one card
 (``cli/train.py``): the numpy/PIL input pipeline is a copy of the JAX
 package's, the targets rasterize on the card, and the train step is plain
-torch on cuDNN.
+torch on cuDNN. ``parallel/`` spreads inference over several devices
+(batch shards or height stripes) and training over processes (DDP,
+ZeRO-1, height stripes).
 
 Importing the package loads no CUDA and builds nothing.
 """
 
 __all__ = ["cli", "config", "constants", "data", "decode", "evaluate",
-           "models", "native", "ops", "runtime", "training", "utils"]
+           "models", "native", "ops", "parallel", "runtime", "training",
+           "utils"]

@@ -12,9 +12,13 @@ the JAX package's flax file) and the JAX package's native ``.msgpack``
 (float32, bf16, int8 or calibrated int8, through
 ``runtime/flax_msgpack.py``; no flax needed). ``--dtype int8`` and
 ``int8_static`` serve vgg2016's int8 variant (``models/quant.py``); an
-int8 checkpoint needs one of them. The JAX CLI's flags the port has no
-use for (``--s2d-blocks``, ``--num-devices``, ``--compilation-cache``)
-are left out, so argparse refuses them.
+int8 checkpoint needs one of them. ``--num-devices N`` (``cli.eval``,
+``cli.run_image``; :func:`add_mesh_arg`) spreads the work over N
+devices: the first N CUDA devices, or N CPU "devices" under ``--device
+cpu`` (one process, as the JAX tests' virtual CPU devices); more than
+are visible is an error. The JAX CLI's flags the port has no use for
+(``--s2d-blocks``, ``--compilation-cache``) are left out, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from torch_ekpose_tpu_torch.runtime.checkpoint import (
 from torch_ekpose_tpu_torch.runtime.estimator import PRECISIONS, PoseEstimator
 from torch_ekpose_tpu_torch.training.trainer import read_checkpoint
 
-__all__ = ["add_model_args", "build_estimator", "check_dtype",
-           "estimator_kwargs", "load_variables", "require", "resolve_dtype"]
+__all__ = ["add_mesh_arg", "add_model_args", "build_estimator",
+           "build_parallel_estimator", "check_dtype", "estimator_kwargs",
+           "load_variables", "require", "resolve_dtype"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": "int8", "int8_static": "int8_static"}
@@ -179,4 +184,37 @@ def build_estimator(
             else "host")
     print(f">>>> Using {device} ({name}), {args.dtype}, decode "
           f"{estimator.decode_backend} <<<<")
+    return estimator
+
+
+def add_mesh_arg(parser: argparse.ArgumentParser, what: str) -> None:
+    parser.add_argument("--num-devices", type=int, default=0,
+                        help=f"{what} over N devices (0 or 1: one device): "
+                        "the first N CUDA devices, or N CPU devices under "
+                        "--device cpu")
+
+
+def build_parallel_estimator(args: argparse.Namespace, kind: str):
+    """A ``ShardedPoseEstimator`` (``kind="sharded"``) or a
+    ``SpatialPoseEstimator`` (``"spatial"``) over ``--num-devices``
+    devices, with :func:`estimator_kwargs`' model and dtype."""
+    from torch_ekpose_tpu_torch.parallel import (
+        ShardedPoseEstimator, SpatialPoseEstimator, make_mesh)
+
+    device = torch.device(args.device)
+    devices = ([device] * args.num_devices if device.type != "cuda"
+               else None)
+    try:
+        mesh = make_mesh(args.num_devices, devices=devices)
+    except (RuntimeError, ValueError) as err:
+        raise SystemExit(f"--num-devices {args.num_devices}: {err}") from None
+    kwargs = estimator_kwargs(args)
+    for key in ("device", "decode_backend"):
+        kwargs.pop(key)
+    cls = {"sharded": ShardedPoseEstimator,
+           "spatial": SpatialPoseEstimator}[kind]
+    estimator = cls(mesh=mesh, **kwargs)
+    print(f">>>> Using {mesh.size} devices ({kind}: "
+          f"{[str(d) for d in mesh.flat]}), {args.dtype}, decode on "
+          f"{mesh.flat[0]} <<<<")
     return estimator

@@ -8,7 +8,10 @@ Reads ``<data-dir>/<datasets>/images/<mode>/`` and
 (the default) an unset ``--batch`` is 8 and ``--decode-backend auto``
 decodes on the card (``device``), as the JAX CLI does on its TPU; on
 another device the defaults stay the reference's: batch 1, host decode.
-Reading the images needs cv2 or Pillow.
+``--num-devices N`` shards each batch over N devices
+(``parallel/inference.py``, each decoding its shard on the card);
+``--batch`` must then be a multiple of N. Reading the images needs cv2
+or Pillow.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ def main(argv=None) -> None:
                         "forward pass per padded-shape bucket). Default: "
                         "8 on a CUDA card, 1 elsewhere (the reference's "
                         "shape)")
+    common.add_mesh_arg(parser, "shard each eval batch")
     args = parser.parse_args(argv)
 
     # card defaults: bucketed batched forward + decode on the card;
@@ -52,7 +56,15 @@ def main(argv=None) -> None:
     if on_card and args.decode_backend == "auto":
         args.decode_backend = "device"
 
-    estimator = common.build_estimator(args)
+    if args.num_devices > 1:
+        if args.batch % args.num_devices:
+            raise SystemExit(
+                f"--batch {args.batch} must be a multiple of "
+                f"--num-devices {args.num_devices}"
+            )
+        estimator = common.build_parallel_estimator(args, "sharded")
+    else:
+        estimator = common.build_estimator(args)
     image_dir = os.path.join(args.data_dir, args.datasets, "images", args.mode)
     anno = os.path.join(
         args.data_dir, args.datasets, f"annotations_{args.mode}.json"

@@ -7,8 +7,10 @@
 
 ``--analyze`` renders heatmap / PAF-x / PAF-y overlays in a 2x2 grid
 instead of the skeleton image (reference run_image.py:33-40,64-109 —
-same either/or behavior); it needs matplotlib. Images are read and
-written through cv2, else Pillow.
+same either/or behavior); it needs matplotlib. ``--num-devices N``
+splits each image's height over N devices (``parallel/spatial.py``;
+single-device only with ``--analyze``). Images are read and written
+through cv2, else Pillow.
 """
 
 from __future__ import annotations
@@ -74,11 +76,15 @@ def main(argv=None) -> None:
     parser.add_argument("--input-dir", type=str, default="./demo/")
     parser.add_argument("--output-dir", type=str, default="./demo/outputs/")
     parser.add_argument("-a", "--analyze", action="store_true")
+    common.add_mesh_arg(parser, "split each image's height")
     args = parser.parse_args(argv)
     if args.analyze:
+        if args.num_devices > 1:
+            raise SystemExit("--analyze is single-device only")
         common.require("matplotlib", "--analyze")
 
-    estimator = common.build_estimator(args)
+    estimator = (common.build_parallel_estimator(args, "spatial")
+                 if args.num_devices > 1 else common.build_estimator(args))
 
     if args.image:
         output = args.output or os.path.join(

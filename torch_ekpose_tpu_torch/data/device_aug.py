@@ -303,10 +303,19 @@ def augment_core(images_u8: torch.Tensor, valid_hw: torch.Tensor,
 
 def augment_batch(images_u8: torch.Tensor, valid_hw: torch.Tensor,
                   kpts: torch.Tensor, generator: torch.Generator,
-                  out_size: int = 368):
+                  out_size: int = 368, shard=(0, 1)):
     """Draw each image's parameters from ``generator``
-    (:func:`sample_params`) and apply them (:func:`augment_core`)."""
-    params = sample_params(images_u8.shape[0], generator)
+    (:func:`sample_params`) and apply them (:func:`augment_core`).
+
+    ``shard=(rank, world)``: the batch is rank ``rank``'s slice of a
+    global batch ``world`` times as large; the draws are the whole global
+    batch's, of which this rank keeps its own, so ``world`` ranks augment
+    exactly as one process does on the global batch."""
+    rank, world = shard
+    b = images_u8.shape[0]
+    params = sample_params(b * world, generator)
+    if world > 1:
+        params = {k: v[rank * b:(rank + 1) * b] for k, v in params.items()}
     return augment_core(images_u8, valid_hw, kpts, params, out_size)
 
 

@@ -7,7 +7,9 @@ width-multiplier ``depth_fn``. Blocks are plain ``nn`` modules at the
 reference's attribute names and ``nn.Sequential`` indices, so the
 ``state_dict`` keys are the reference's.
 
-BatchNorm is ``nn.BatchNorm2d`` (eps 1e-5): in eval mode it normalizes
+BatchNorm is :class:`BatchNorm2d`, ``nn.BatchNorm2d`` (eps 1e-5) whose
+training statistics may span several processes and height stripes (see
+the class); in eval mode it normalizes
 with the float32 running statistics in float32 and returns the input's
 dtype, which is the JAX package's ``TorchBatchNorm`` at inference. Its
 weight and bias stay float32 tensors in a bf16 model (holding
@@ -25,13 +27,15 @@ on any device.
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ConvBN", "DSConv", "batch_norm", "conv_relu", "depth_fn",
-           "init_conv_", "max_pool"]
+__all__ = ["BatchNorm2d", "ConvBN", "DSConv", "batch_norm", "conv_relu",
+           "depth_fn", "global_batch_norm", "init_conv_", "max_pool",
+           "sync_batch_norm"]
 
 #: BatchNorm epsilon of the reference (torch's default) and the JAX package
 BN_EPS = 1e-5
@@ -45,9 +49,122 @@ def conv_relu(in_ch: int, out_ch: int, kernel: int, device) -> List[nn.Module]:
     ]
 
 
-def batch_norm(channels: int, device) -> nn.BatchNorm2d:
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose batch statistics span the GLOBAL batch, as
+    the JAX package's ``TorchBatchNorm`` (``models/layers.py``) reduces
+    them over a sharded array: over the ranks of ``process_group`` (data
+    parallelism; :func:`sync_batch_norm` sets it) and over the stripes of
+    a height-split activation (``parallel/spatial.py``).
+
+    With neither (or a group of one rank), ``forward`` is
+    ``nn.BatchNorm2d``'s. Otherwise, in
+    training mode, :func:`global_batch_norm` sums the float32 sum and sum
+    of squares of every stripe, all-reduces them (and the count) over the
+    process group by an all-reduce whose backward all-reduces the
+    gradient, and normalizes each stripe by the global
+    mean and biased variance; the running variance takes Bessel's factor
+    over the global count. In eval mode each stripe normalizes by the
+    running statistics. The ``state_dict`` is ``nn.BatchNorm2d``'s.
+    ``nn.SyncBatchNorm`` is no substitute: it refuses CPU tensors."""
+
+    #: the ranks whose batches the statistics span (None: this process)
+    process_group = None
+
+    def forward(self, x):
+        parts = getattr(x, "parts", None)        # parallel.spatial.Stripes
+        if parts is None and not (self.training and self._ranks() > 1):
+            return super().forward(x)
+        if parts is None:
+            return global_batch_norm(self, [x], self.process_group)[0]
+        if self.training:
+            out = global_batch_norm(self, parts, self.process_group)
+        else:
+            out = [F.batch_norm(p, *(x.replicas.move(t, p.device) for t in (
+                self.running_mean, self.running_var, self.weight,
+                self.bias)), False, 0.0, self.eps) for p in parts]
+        return type(x)(out, x.replicas)
+
+    def _ranks(self) -> int:
+        if self.process_group is None:
+            return 1
+        import torch.distributed as dist
+
+        return dist.get_world_size(self.process_group)
+
+
+def global_batch_norm(bn: nn.BatchNorm2d, parts: Sequence[torch.Tensor],
+                      group=None) -> List[torch.Tensor]:
+    """Training-mode BN of ``parts`` (stripes of one activation, or one
+    tensor) with the statistics of all of them and of every rank of
+    ``group``; updates ``bn``'s running statistics once."""
+    import torch.distributed as dist
+
+    acc = torch.promote_types(parts[0].dtype, torch.float32)
+    home = parts[0].device
+    stats = sum(torch.cat([p.to(acc).sum((0, 2, 3)),
+                           p.to(acc).square().sum((0, 2, 3)),
+                           p.new_full((1,), p.numel() // p.shape[1],
+                                      dtype=acc)]).to(home)
+                for p in parts)
+    if group is not None and dist.get_world_size(group) > 1:
+        stats = _all_reduce(stats, group)
+    c = bn.num_features
+    n = stats[-1]
+    mean = stats[:c] / n
+    var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+    with torch.no_grad():                        # no host sync
+        m = bn.momentum
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
+        bn.num_batches_tracked.add_(1)
+        bn.running_mean.mul_(1 - m).add_(m * mean.to(bn.running_mean.dtype))
+        bn.running_var.mul_(1 - m).add_(m * unbiased.to(bn.running_var.dtype))
+    scale = torch.rsqrt(var + bn.eps) * bn.weight.to(acc)
+    shift = bn.bias.to(acc) - mean * scale
+    out = []
+    for p in parts:
+        s = scale.to(p.device)[None, :, None, None]
+        b = shift.to(p.device)[None, :, None, None]
+        out.append((p.to(acc) * s + b).to(p.dtype))
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over the ranks whose backward is the same sum of the
+    gradients (each rank's statistics feed every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return _AllReduce.apply(x, group)
+
+
+def sync_batch_norm(model: nn.Module, group) -> None:
+    """Make every :class:`BatchNorm2d` of ``model`` reduce its training
+    statistics over the ranks of ``group`` (None: this process alone)."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm2d):
+            module.process_group = group
+
+
+def batch_norm(channels: int, device) -> BatchNorm2d:
     """The reference's ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1)."""
-    return nn.BatchNorm2d(channels, eps=BN_EPS, device=device)
+    return BatchNorm2d(channels, eps=BN_EPS, device=device)
 
 
 class ConvBN(nn.Module):

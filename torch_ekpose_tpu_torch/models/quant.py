@@ -42,7 +42,7 @@ result there, ROADMAP Queue 1 item 9).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -84,12 +84,14 @@ def pack_weight(weight_q: torch.Tensor) -> torch.Tensor:
                  (0, _ceil(c, _ALIGN) - c)).reshape(o, -1).contiguous()
 
 
-def int8_conv2d(xq: torch.Tensor, wmat: torch.Tensor,
-                kernel: int) -> torch.Tensor:
+def int8_conv2d(xq: torch.Tensor, wmat: torch.Tensor, kernel: int,
+                pad_h: Optional[int] = None) -> torch.Tensor:
     """Stride-1 SAME ``kernel`` x ``kernel`` conv of int8 NCHW ``xq`` with
     the packed weight ``wmat`` (:func:`pack_weight`) -> the int32
     accumulator, NCHW (a ``channels_last`` view): ``im2col`` then
-    ``torch._int_mm``.
+    ``torch._int_mm``. ``pad_h`` (default ``kernel // 2``) is the zero
+    rows added above and below: 0 for a stripe of a height-split image
+    that carries its halo rows (``parallel/spatial.py``).
 
     The columns are gathered channels last, (dy, dx, c): the input is
     padded NHWC (the activations between int8 convs are ``channels_last``
@@ -99,8 +101,10 @@ def int8_conv2d(xq: torch.Tensor, wmat: torch.Tensor,
     n, c, h, w = xq.shape
     o, k = wmat.shape[0], kernel
     pad, cp = k // 2, _ceil(c, _ALIGN)
+    pad_h = pad if pad_h is None else pad_h
+    h += 2 * pad_h - 2 * pad
     padded = F.pad(xq.permute(0, 2, 3, 1),
-                   (0, cp - c, pad, pad, pad, pad)).contiguous()
+                   (0, cp - c, pad, pad, pad_h, pad_h)).contiguous()
     words = padded.view(torch.int64)            # [N, H', W', cp / 8]
     if k > 1:
         # [N, H, W, cp / 8, k, k] view -> rows (n, y, x), columns (dy, dx)
@@ -163,6 +167,9 @@ class QuantConv(nn.Module):
         return f"{c}, {o}, kernel_size={k}, static={self.static}"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """A height-split ``x`` (``parallel/spatial.py``) takes its
+        dynamic scale over every stripe and its halo rows from the stripes
+        next to each."""
         xf = x.float()
         if self.static and self.observed is None:
             sx = self.act_scale.clamp_min(_TINY)
@@ -176,7 +183,12 @@ class QuantConv(nn.Module):
                 seen = sx.max() * 127.0
                 self.observed = torch.maximum(self.observed, seen)
         xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
-        acc = int8_conv2d(xq, self.wmat, self.weight_q.shape[-1])
+        k = self.weight_q.shape[-1]
+        if hasattr(xq, "conv_rows"):      # height-split (parallel/spatial.py)
+            acc = xq.conv_rows(k, 1, k // 2, 0, lambda rows, move: int8_conv2d(
+                rows, move(self.wmat), k, pad_h=0))
+        else:
+            acc = int8_conv2d(xq, self.wmat, k)
         y = torch.addcmul(self.bias[:, None, None], acc.float(),
                           sx * self.scale[:, None, None])
         return y.to(x.dtype)

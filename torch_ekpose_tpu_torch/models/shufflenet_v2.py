@@ -30,10 +30,12 @@ SHUFFLENET_SETTINGS = {
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """NCHW channel shuffle (reference shufflenetV2.py:7-19): channel
     ``g * (C / groups) + j`` moves to ``j * groups + g``, the JAX
-    package's NHWC order."""
-    n, c, h, w = x.shape
-    return x.view(n, groups, c // groups, h, w).transpose(1, 2).reshape(
-        n, c, h, w)
+    package's NHWC order. Only the channel axis is read, so a
+    height-split activation (``parallel/spatial.py``) shuffles stripe by
+    stripe."""
+    c = x.shape[1]
+    return x.unflatten(1, (groups, c // groups)).transpose(1, 2).flatten(
+        1, 2)
 
 
 def _conv(in_ch, out_ch, kernel, stride=1, groups=1, device=None):

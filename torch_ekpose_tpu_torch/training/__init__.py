@@ -1,6 +1,7 @@
-"""Training on one device (counterpart of the JAX package's
-``training/``): the CPM loss, the plateau schedule, metrics, the train
-and eval steps and the ``Trainer``. The JAX package's ``TrainState`` and
+"""Training (counterpart of the JAX package's ``training/``) on one
+device or as one rank of a data-parallel process group: the CPM loss,
+the plateau schedule, metrics, the train and eval steps and the
+``Trainer``. The JAX package's ``TrainState`` and
 ``create_train_state`` have no counterpart here: the module and its
 ``torch.optim.Adam`` hold the state."""
 

@@ -26,13 +26,23 @@ With ``targets="raw"`` the whole augmentation chain runs on the device
 too (``data/device_aug.py``), from decode-only uint8 canvases, before the
 targets and the step.
 
+Data parallelism (``training/trainer.py``, one process per device) runs
+the step's forward through ``DistributedDataParallel`` (``forward=``),
+which averages the gradients over the ranks' equal local batches, so the
+step takes the global batch's gradient (the loss is ``sum / local
+batch``); ``--grad-accum``'s micro-steps but the last run under
+``no_sync()``. ``--zero1`` makes the optimizer ZeRO-1
+(``parallel/mesh.py::zero1_optimizer``); ``--spatial`` passes a
+``parallel/spatial.py::SpatialForward``.
+
 The JAX package's ``TrainState``/``create_train_state`` have no
 counterpart: the module and the optimizer hold the state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,7 +60,8 @@ def make_optimizer(
     lr: float,
     weight_decay: float,
     freeze_backbone: bool = False,
-) -> torch.optim.Adam:
+    zero1: bool = False,
+) -> torch.optim.Optimizer:
     """``torch.optim.Adam(params, lr, weight_decay)``: L2 added to the
     gradient before the Adam moments (reference train.py:177-181), which
     the JAX package reproduces with ``add_decayed_weights`` + ``adam``.
@@ -59,6 +70,10 @@ def make_optimizer(
     ``model0``, and ``model0``'s parameters stop taking gradients — the
     reference's warmup (reference train.py:130-166). Its BN running
     statistics still update in train mode, as in the JAX package.
+
+    ``zero1``: the same Adam as ZeRO-1, each rank of the process group
+    holding the moments of its part of the parameters
+    (``parallel/mesh.py::zero1_optimizer``).
     """
     params = []
     for name, param in model.named_parameters():
@@ -66,6 +81,10 @@ def make_optimizer(
             param.requires_grad_(False)
         else:
             params.append(param)
+    if zero1:
+        from torch_ekpose_tpu_torch.parallel.mesh import zero1_optimizer
+
+        return zero1_optimizer(params, lr, weight_decay)
     return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
 
 
@@ -130,6 +149,8 @@ def make_train_step(
     sigma: float = constants.TARGET_SIGMA,
     grad_accum: int = 1,
     compute_dtype: torch.dtype = torch.float32,
+    forward: Optional[Callable] = None,
+    shard: Tuple[int, int] = (0, 1),
 ):
     """Build the train step.
 
@@ -150,6 +171,14 @@ def make_train_step(
     are summed and divided by N before ONE optimizer step — the JAX
     package's ``lax.scan``. The loss is a per-sample mean, so this is the
     full batch's gradient (reference train.py:311-339).
+
+    ``forward`` (default ``model``) runs the training forward, with
+    ``model``'s signature: a ``DistributedDataParallel`` around it (its
+    ``no_sync()`` holds the all-reduce back until the last micro-batch)
+    or a ``SpatialForward``. ``shard=(rank, world)``: this process's
+    batch is one rank's slice of the global batch; raw mode then draws
+    the global batch's augmentation and keeps its slice
+    (``data/device_aug.py::augment_batch``).
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -157,12 +186,15 @@ def make_train_step(
     prepare = _targets_fn("device" if targets == "raw" else targets, grid,
                           stride, sigma)
     cast = None if compute_dtype == torch.float32 else compute_dtype
+    run = model if forward is None else forward
+    no_sync = getattr(run, "no_sync", contextlib.nullcontext)
 
-    def micro(images, heat_t, paf_t):
+    def micro(images, heat_t, paf_t, sync=True):
         x = images if cast is None else images.to(cast)
-        _, saved = model(x, compute_dtype=cast)
-        total, logs = cpm_loss(saved, heat_t, paf_t)
-        total.backward()
+        with contextlib.nullcontext() if sync else no_sync():
+            _, saved = run(x, compute_dtype=cast)
+            total, logs = cpm_loss(saved, heat_t, paf_t)
+            total.backward()
         logs["Loss"] = total.detach()
         return logs
 
@@ -179,9 +211,10 @@ def make_train_step(
                         f"batch {images.shape[0]} does not split into "
                         f"{grad_accum} equal micro-batches")
                 per_micro = [
-                    micro(*mb) for mb in zip(
+                    micro(*mb, sync=i == grad_accum - 1)
+                    for i, mb in enumerate(zip(
                         images.chunk(grad_accum), heat_t.chunk(grad_accum),
-                        paf_t.chunk(grad_accum))
+                        paf_t.chunk(grad_accum)))
                 ]
                 for group in optimizer.param_groups:
                     for param in group["params"]:
@@ -199,7 +232,8 @@ def make_train_step(
 
     def step_raw(canvases_u8, valid_hw, keypoints, generator):
         images, kpts = augment_batch(canvases_u8, valid_hw, keypoints,
-                                     generator, out_size=out_size)
+                                     generator, out_size=out_size,
+                                     shard=shard)
         return step(images, kpts)
 
     return step_raw
@@ -213,14 +247,17 @@ def make_eval_step(
     stride: int = constants.DOWNSAMPLE,
     sigma: float = constants.TARGET_SIGMA,
     compute_dtype: torch.dtype = torch.float32,
+    forward: Optional[Callable] = None,
 ):
     """Validation loss step (reference train.py:395-430, no backward):
     the model in eval mode (BN on its running statistics), the same
     arguments and logs as :func:`make_train_step`'s step. Validation
-    never augments, so there is no ``"raw"`` mode."""
+    never augments, so there is no ``"raw"`` mode. ``forward`` as in
+    :func:`make_train_step` (a ``SpatialForward``)."""
     _check_targets(targets, grid)
     prepare = _targets_fn(targets, grid, stride, sigma)
     cast = None if compute_dtype == torch.float32 else compute_dtype
+    run = model if forward is None else forward
 
     @torch.no_grad()
     def step(*batch):
@@ -228,7 +265,7 @@ def make_eval_step(
         with tf32(False):
             images, heat_t, paf_t = prepare(*batch)
             x = images if cast is None else images.to(cast)
-            _, saved = model(x, compute_dtype=cast)
+            _, saved = run(x, compute_dtype=cast)
             total, logs = cpm_loss(saved, heat_t, paf_t)
         logs["Loss"] = total
         return logs

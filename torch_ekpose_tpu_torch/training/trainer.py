@@ -4,9 +4,20 @@ plateau LR scheduling, checkpointing with FULL resume state (model +
 optimizer + epoch + scheduler — the reference saves bare weights only and
 cannot resume, train.py:207-218), metrics, and the training-curve PNG.
 
-Counterpart of the JAX package's ``training/trainer.py`` for one process
-on one card. The JAX package's multi-host consensus, data-parallel mesh,
-ZeRO-1 and spatial sharding are not ported (ROADMAP Queue 1 item 7).
+Counterpart of the JAX package's ``training/trainer.py``. One process
+trains on one device; in a ``torch.distributed`` process group
+(``parallel/mesh.py::init_distributed``, ``cli.train --num-devices``)
+each process is one data-parallel rank on its own device, its loader
+serving its slice of the global batch: the step's forward runs through
+``DistributedDataParallel``, BN reduces its statistics over the ranks
+(``models/layers.py::BatchNorm2d``), the logged series are the global
+batch's (reduced on the device once an epoch), a preemption flag is
+agreed on at a fixed cadence, and rank 0 alone writes the metrics,
+checkpoints and curve. ``zero1=True`` shards Adam's moments over the
+ranks (ZeRO-1); its checkpoints hold the full, consolidated state.
+A ``device`` that is a sequence of K devices (the rank's row of
+``parallel/mesh.py::rank_devices``) splits each image's height over them
+(``parallel/spatial.py::SpatialForward``).
 Batches are uploaded from pinned host memory with ``non_blocking=True``
 and the per-batch loss accumulates on the device, so the loop reads the
 device once per epoch. With ``targets="raw"`` the training batches are
@@ -29,14 +40,20 @@ import os
 import signal
 import threading
 import time
+import warnings
 import zipfile
 from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from torch_ekpose_tpu_torch.config import Config, cfg as default_cfg
 from torch_ekpose_tpu_torch.models.factory import get_model, init_model
+from torch_ekpose_tpu_torch.models.layers import sync_batch_norm
+from torch_ekpose_tpu_torch.parallel.mesh import (
+    all_reduce_flag, process_count, process_index)
+from torch_ekpose_tpu_torch.parallel.spatial import SpatialForward
 from torch_ekpose_tpu_torch.runtime.checkpoint import (
     params_from_jax, state_dict_from_jax)
 from torch_ekpose_tpu_torch.runtime.flax_msgpack import read_flax_msgpack
@@ -85,6 +102,22 @@ def aug_generator(seed: int, epoch: int, batch: int) -> torch.Generator:
         int(state.generate_state(1, np.uint64)[0]))
 
 
+class _NullMetrics:
+    """The metrics sink of every rank but 0."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def add_scalars(self, *args, **kwargs):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 def _python(value):
     """A 0-d numpy leaf of a flax payload as a Python number."""
     return value.item() if hasattr(value, "item") else value
@@ -105,11 +138,19 @@ class Trainer:
         compute_dtype: torch.dtype = torch.float32,
         grad_accum: int = 1,
         remat: bool = False,
+        zero1: bool = False,
     ):
         self.config = config or default_cfg
         tc = self.config.TRAIN
         self.model_name = model_name
-        self.device = _resolve_device(device)
+        # a sequence of devices: this rank's height-split group
+        # (parallel.mesh.rank_devices), the parameters on its first
+        group = ([device] if isinstance(device, (str, torch.device))
+                 else list(device))
+        self.device = _resolve_device(group[0])
+        #: data-parallel ranks: the process group's (1 outside one)
+        self.rank, self.world = process_index(), process_count()
+        self.zero1 = zero1
         # remat: backward-pass recomputation of the backbone + each CPM
         # branch (torch.utils.checkpoint) — the same gradients, activation
         # memory traded for ~one extra forward; the state_dict is
@@ -125,35 +166,60 @@ class Trainer:
             self.model.load_state_dict(state_dict, strict=True)
         self.optimizer = make_optimizer(
             self.model, tc.lr, tc.weight_decay,
-            freeze_backbone=freeze_backbone,
+            freeze_backbone=freeze_backbone, zero1=zero1,
         )
+        # several devices: each image's height splits over them; the data
+        # axis is the processes
+        forward = self.model
+        if len(group) > 1:
+            forward = SpatialForward(self.model, group)
+        eval_forward = forward
+        if self.world > 1:
+            # statistics over the global batch; every rank holds equal
+            # state, so DDP need not broadcast the buffers each step
+            sync_batch_norm(self.model, dist.group.WORLD)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", FutureWarning)
+                forward = torch.nn.parallel.DistributedDataParallel(
+                    forward, broadcast_buffers=False,
+                    device_ids=([self.device] if self.device.type == "cuda"
+                                else None))
         grid = (tc.square_size // 8, tc.square_size // 8)
         # bf16 activations run the convs at the tensor cores' bf16 rate;
         # parameters, Adam moments and the loss stay float32
         self.train_step = make_train_step(
             self.model, self.optimizer, targets=targets, grid=grid,
             grad_accum=grad_accum, compute_dtype=compute_dtype,
+            forward=forward, shard=(self.rank, self.world),
         )
         # raw mode augments TRAINING batches on the device; validation
         # never augments, so its loader serves device-target items
         self.targets = targets
         self.eval_step = make_eval_step(
             self.model, targets="device" if targets == "raw" else targets,
-            grid=grid, compute_dtype=compute_dtype,
+            grid=grid, compute_dtype=compute_dtype, forward=eval_forward,
         )
         self.scheduler = ReduceLROnPlateau(
             tc.lr, factor=tc.lr_factor, patience=tc.lr_patience
         )
         self.out_dir = out_dir
-        # the training curve PNG lands here after the FIRST epoch, before
-        # any checkpoint has created the directory
-        os.makedirs(out_dir, exist_ok=True)
-        self.metrics = MetricsWriter(log_dir)
+        # rank 0 alone owns the files: metrics, checkpoints, the curve
+        self.is_main_process = self.rank == 0
+        if self.is_main_process:
+            # the training curve PNG lands here after the FIRST epoch,
+            # before any checkpoint has created the directory
+            os.makedirs(out_dir, exist_ok=True)
+        self.metrics = (MetricsWriter(log_dir) if self.is_main_process
+                        else _NullMetrics())
         self.step = 0
         self.epoch = 0
         self.best_val = float("inf")
         self.train_curve = {"train": [], "val": []}
         self.preempted = False
+        # the ranks agree on a preemption (an OR over the group) at these
+        # batch indices only, the same on every rank: a rank that broke
+        # on its own flag would leave the others waiting in a collective
+        self.preempt_sync_every = 16
 
     def _upload(self, batch):
         """Host numpy arrays -> tensors on the device: through pinned
@@ -166,6 +232,41 @@ class Trainer:
                                                 non_blocking=True)
             out.append(tensor)
         return out
+
+    def _sync_preempted(self) -> bool:
+        """The preemption flag agreed on by every rank (a collective; the
+        local flag alone in one process)."""
+        self.preempted = all_reduce_flag(self.preempted)
+        return self.preempted
+
+    def _global(self, logs: dict, loss_sum, n_seen: int):
+        """The epoch's loss sum, sample count and last logs over every
+        rank, reduced on the device: the stage sums add, ``Loss`` is the
+        mean of the ranks' (equal local batches), ``max_*`` / ``min_*``
+        take the max / min."""
+        if self.world == 1 or loss_sum is None:
+            return logs, loss_sum, n_seen
+        device = loss_sum.device
+        if dist.get_backend() == "gloo":
+            device = torch.device("cpu")
+        total = torch.stack([loss_sum.float().to(device),
+                             torch.tensor(float(n_seen), device=device)])
+        dist.all_reduce(total)
+        names = list(logs)
+        values = torch.stack([logs[k].float().to(device) for k in names])
+        ops = [dist.ReduceOp.MAX if k.startswith("max")
+               else dist.ReduceOp.MIN if k.startswith("min")
+               else dist.ReduceOp.SUM for k in names]
+        out = {}
+        for op in (dist.ReduceOp.SUM, dist.ReduceOp.MAX, dist.ReduceOp.MIN):
+            idx = [i for i, o in enumerate(ops) if o == op]
+            if not idx:
+                continue
+            part = values[idx].clone()
+            dist.all_reduce(part, op=op)
+            for i, v in zip(idx, part):
+                out[names[i]] = v / self.world if names[i] == "Loss" else v
+        return {k: out[k] for k in names}, total[0], int(total[1])
 
     # -- epoch loops -----------------------------------------------------
 
@@ -181,7 +282,13 @@ class Trainer:
         n_seen = 0
         n_batches = 0
         for batch in loader:
-            if self.preempted:
+            # one process: the local flag, every batch. Several ranks:
+            # the agreed flag, at the fixed cadence only
+            if self.world == 1:
+                if self.preempted:
+                    break
+            elif (n_batches % self.preempt_sync_every == 0
+                    and self._sync_preempted()):
                 break
             data_time.update(time.time() - end)
             batch = self._upload(batch)
@@ -200,6 +307,7 @@ class Trainer:
             n_seen += n
             n_batches += 1
             end = time.time()
+        logs, loss_sum, n_seen = self._global(logs, loss_sum, n_seen)
         avg_loss = (
             float(loss_sum) / n_seen if loss_sum is not None else 0.0
         )
@@ -288,14 +396,14 @@ class Trainer:
             ):
                 train_loader.dataset.reseed(tc.seed + epoch)
             train_loss = self._run_epoch(train_loader, train=True)
-            if self.preempted:
+            if self._sync_preempted():
                 self._save_preempt(epoch, verbose)
                 break
             val_loss = (
                 self._run_epoch(val_loader, train=False)
                 if val_loader is not None else train_loss
             )
-            if self.preempted:
+            if self._sync_preempted():
                 # preempted during validation: the partial val loss must
                 # not reach the scheduler / best-checkpoint logic; the
                 # whole epoch re-runs on resume
@@ -320,10 +428,11 @@ class Trainer:
             if epoch > 5 and val_loss < self.best_val:
                 self.best_val = val_loss
                 self.save(os.path.join(self.out_dir, "best_epoch.ckpt"))
-            save_training_curve(
-                os.path.join(self.out_dir, "training_curve.png"),
-                self.train_curve["train"], self.train_curve["val"],
-            )
+            if self.is_main_process:
+                save_training_curve(
+                    os.path.join(self.out_dir, "training_curve.png"),
+                    self.train_curve["train"], self.train_curve["val"],
+                )
         return self.train_curve
 
     # -- checkpointing (full resume state) -------------------------------
@@ -331,7 +440,18 @@ class Trainer:
     def save(self, path: str, resume_epoch: Optional[int] = None) -> None:
         """One ``torch.save`` dict: the model's ``state_dict`` (float32),
         the optimizer's, the step, the epoch to resume at, the best
-        validation loss, the scheduler and the loss curves."""
+        validation loss, the scheduler and the loss curves. Every rank
+        calls it; a ZeRO-1 optimizer's state is consolidated (a
+        collective) into the full Adam state, and rank 0 writes; the
+        ranks then wait for the file."""
+        if self.zero1:
+            self.optimizer.consolidate_state_dict(to=0)
+        if self.is_main_process:
+            self._write(path, resume_epoch)
+        if self.world > 1:
+            dist.barrier()       # the file is there for every rank after
+
+    def _write(self, path: str, resume_epoch: Optional[int]) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         torch.save({
             "model": self.model.state_dict(),
@@ -347,8 +467,10 @@ class Trainer:
 
     def restore(self, path: str) -> None:
         """Load what :meth:`save` wrote (parameters, BN statistics and
-        optimizer state come back bitwise), or a JAX trainer's flax
-        ``.ckpt`` (:meth:`_restore_flax`)."""
+        optimizer state come back bitwise; a ZeRO-1 optimizer keeps its
+        own part of a plain Adam state, and a plain one loads a ZeRO-1
+        checkpoint's full state), or a JAX trainer's flax ``.ckpt``
+        (:meth:`_restore_flax`). Every rank reads the file."""
         payload = read_checkpoint(path, self.device)
         if not {"model", "opt_state"} & set(payload):
             raise SystemExit(
@@ -394,14 +516,20 @@ class Trainer:
                 f"this optimizer trains {len(names)} (a frozen-backbone "
                 "state needs freeze_backbone=True, and the other way round)")
         step = float(_python(adam["count"]))
-        self.optimizer.state.clear()
+        # a plain Adam over the trained parameters takes the state; a
+        # ZeRO-1 optimizer then loads its part of that Adam's state
+        adam_opt = (torch.optim.Adam([dict(g) for g in
+                                      self.optimizer.param_groups])
+                    if self.zero1 else self.optimizer)
+        adam_opt.state.clear()
         for name in names:
             param = params[name]
-            self.optimizer.state[param] = {
+            adam_opt.state[param] = {
                 "step": torch.tensor(step, dtype=torch.float32),
                 "exp_avg": mu[name].to(param.device, param.dtype),
                 "exp_avg_sq": nu[name].to(param.device, param.dtype),
             }
         set_learning_rate(
-            self.optimizer,
-            float(_python(opt["hyperparams"]["learning_rate"])))
+            adam_opt, float(_python(opt["hyperparams"]["learning_rate"])))
+        if adam_opt is not self.optimizer:
+            self.optimizer.load_state_dict(adam_opt.state_dict())
