@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving path, VGG prefix path, every model,
-training, int8 serving, on-card augmentation and the parallel layer on
-one CUDA card.
+training, int8 serving, on-card augmentation, the parallel layer and the
+AOT deployment artifact on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -200,7 +200,22 @@ Phases (any failure raises and exits non-zero):
     ``--zero1`` against plain Adam in the same group; (d) ``cli.train
     --num-devices 1 --gpus 0 --zero1`` (a one-rank NCCL group, joined on
     the trainer's card) and ``cli.eval
-    --num-devices 1``.
+    --num-devices 1``;
+15. the AOT deployment artifact (``runtime/aot.py``; no kernel of its
+    own: its decode program calls the three decode kernels as custom
+    ops), by ``scripts/profile_torch_aot.py``'s ``run``: ``cli.export
+    --aot`` of vgg2016 bf16 at batch 8, 368x432, from seeded weights with
+    a peaky head saved as a ``.pth``, then ``load_pipeline`` (the forward
+    + decode pair captured in one CUDA graph); the decode program on the
+    golden scenes tiled to 8 (integer fields exact, float fields within
+    rtol 1e-5, the golden people, each kernel launched once), the
+    forward program's maps against the live estimator's (bf16 cosine >
+    0.9999), the graph replay bit-equal to the two programs run op by op,
+    each decode kernel launched once a replay (by kernel name in
+    ``torch.profiler``: a replay runs no Python); ``AotPipeline.
+    estimate_batch`` against the live ``estimate_batch`` by CUDA events
+    (median of 20, in turns) with the card's busy ms of each, for vgg2016
+    and mobilenet_thin; one PNG through ``cli.serve --aot``'s server.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -2384,6 +2399,10 @@ def main() -> int:
         data, rates = check_training(torch, inputs, tmp)
         check_raw_training(torch, data, rates, aug_ms, tmp)
         check_parallel(torch, prof, kernels, inputs, data, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        load_script("profile_torch_aot").run(torch, inputs, prof, tmp)
+        print(f"phase 15 in {time.perf_counter() - t0:.1f} s")
 
     kernels += convs
     for rec in kernels:

@@ -5,7 +5,8 @@ twins (float32 within 1e-4 of max|twin| with TF32 off: the sums run in
 another order; bf16 within 0.02 of max|twin|: one sum-order difference
 can move a value across a bf16 rounding boundary, and the next layer
 carries it on), on each of ``conv_chain``'s routes (``-k sm90`` picks the
-TMA + wgmma one, ``-k f32`` the float32 one).
+TMA + wgmma one, ``-k f32`` the float32 one), and an AOT artifact's
+CUDA-graph replay against its programs run op by op (``-k aot``).
 
 Marked ``gpu``; they skip without a card (the decision is made in a
 fixture, so every xdist worker collects the same tests). The file
@@ -497,3 +498,37 @@ def test_conv_kernels_refuse_what_they_do_not_take(cuda):
         cc.conv_chain(x.float(), [])
     with pytest.raises(ValueError, match="another device"):
         block1.conv1_fused(x.float(), w1.cpu(), b1.cpu())
+
+
+def test_aot_graph_replay_matches_eager(cuda, tmp_path):
+    """An artifact exported and loaded on the card (shufflenetV2_0.5x,
+    float32 with TF32 off, batch 2 of 64x64 frames, on weights that make
+    every BN work with its head set to make people): the CUDA-graph replay
+    is bit-equal to the two loaded programs run op by op, and finds
+    people. A replay runs no Python, so the kernels' counts stay; the
+    eager run raises each by one."""
+    from torch_ekpose_tpu_torch.models.factory import get_model
+    from torch_ekpose_tpu_torch.runtime import aot
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
+                                               dtype=np.uint8)
+    name = "shufflenetV2_0.5x"
+    state = inputs.working_state_dict(get_model(name, device="cpu"), 0)
+    est = PoseEstimator(name, state, device=cuda, compute_dtype=torch.float32,
+                        precision="highest", dest_size=64)
+    inputs.peaky_head_(est, frames)
+    path = str(tmp_path / "pose.ekx")
+    aot.export_pipeline(est, path, 2, 64, 64)
+    pipe = aot.load_pipeline(path)
+    assert pipe.graph is not None
+    kernels = (nms.masked_peak_scores, match.greedy_match, merge.merge_people)
+    before = [f.launches for f in kernels]
+    got = pipe.packed(frames)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == before
+    want = pipe.run_eager(torch.from_numpy(frames).to(cuda))
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in before]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert min(len(h) for h in pipe.estimate_batch(frames)) >= 1

@@ -327,11 +327,13 @@ def _png(path, rng, h=48, w=64):
     _write_image(str(path), rng.integers(0, 256, (h, w, 3), np.uint8))
 
 
-def test_export_round_trip(float_state, tmp_path):
+def test_export_round_trip(float_state, tmp_path, capsys):
     """``cli.export`` writes the port's ``.pt`` in each dtype and the
     reference ``.pth``; each loads back through ``load_variables`` to the
     same weights (bf16: rounded), int8_static with the act_scales its
-    calibration measured, and serves; ``--aot`` exits naming item 8."""
+    calibration measured, and serves; ``--aot`` (``runtime/aot.py``,
+    ``tests/test_torch_aot.py``) refuses int8_static without calibration
+    frames, as the JAX CLI does."""
     src = str(tmp_path / "vgg2016.pth")
     torch.save(float_state, src)
     images = tmp_path / "calib"
@@ -385,5 +387,9 @@ def test_export_round_trip(float_state, tmp_path):
         check_dtype(int8, "bfloat16")
     with pytest.raises(SystemExit, match="do not convert back"):
         export.main(["-c", out["int8"], "-o", str(tmp_path / "x.pt")])
-    with pytest.raises(SystemExit, match="item 8"):
-        export.main(["-c", src, "-o", str(tmp_path / "a.bin"), "--aot"])
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
+        export.main(["-c", src, "-o", str(tmp_path / "a.bin"), "--aot",
+                     "--dtype", "int8_static"])
+    assert "requires --calib-images" in capsys.readouterr().err
+    assert not (tmp_path / "a.bin").exists()

@@ -2,8 +2,9 @@
 (``constants``, ``config``, ``utils/human``, ``decode/oracle``,
 ``data/coco``, ``evaluate/cocoeval``, the training input pipeline and
 loop helpers: ``data/{preprocessing,transforms,dataset,raw_cache}``,
-``training/{schedule,metrics}``, ``cli/test_loader``, and the legacy
-decoder ``decode/legacy``) against their originals.
+``training/{schedule,metrics}``, ``cli/test_loader``, the legacy
+decoder ``decode/legacy`` and the synthetic scenes ``decode/synthetic``)
+against their originals.
 
 The port imports nothing of the JAX package, so it keeps copies; these
 tests hold each copy equal to its original: the code itself (the syntax
@@ -31,6 +32,7 @@ from torch_ekpose_tpu.data import raw_cache as jax_raw_cache
 from torch_ekpose_tpu.data import transforms as jax_transforms
 from torch_ekpose_tpu.decode import legacy as jax_legacy
 from torch_ekpose_tpu.decode import oracle as jax_oracle
+from torch_ekpose_tpu.decode import synthetic as jax_synthetic
 from torch_ekpose_tpu.evaluate import cocoeval as jax_cocoeval
 from torch_ekpose_tpu.ops import resize as jax_resize
 from torch_ekpose_tpu.training import metrics as jax_metrics
@@ -46,6 +48,7 @@ from torch_ekpose_tpu_torch.data import raw_cache as port_raw_cache
 from torch_ekpose_tpu_torch.data import transforms as port_transforms
 from torch_ekpose_tpu_torch.decode import legacy as port_legacy
 from torch_ekpose_tpu_torch.decode import oracle as port_oracle
+from torch_ekpose_tpu_torch.decode import synthetic as port_synthetic
 from torch_ekpose_tpu_torch.evaluate import cocoeval as port_cocoeval
 from torch_ekpose_tpu_torch.ops import resize as port_resize
 from torch_ekpose_tpu_torch.training import metrics as port_metrics
@@ -59,7 +62,8 @@ PAIRS = [(jax_constants, port_constants), (jax_config, port_config),
          (jax_transforms, port_transforms), (jax_dataset, port_dataset),
          (jax_schedule, port_schedule), (jax_metrics, port_metrics),
          (jax_test_loader, port_test_loader),
-         (jax_raw_cache, port_raw_cache), (jax_legacy, port_legacy)]
+         (jax_raw_cache, port_raw_cache), (jax_legacy, port_legacy),
+         (jax_synthetic, port_synthetic)]
 
 
 def _body(module, rename=False) -> str:
@@ -75,7 +79,8 @@ def _body(module, rename=False) -> str:
                          ids=["constants", "config", "human", "oracle",
                               "coco", "cocoeval", "preprocessing",
                               "transforms", "dataset", "schedule", "metrics",
-                              "test_loader", "raw_cache", "legacy"])
+                              "test_loader", "raw_cache", "legacy",
+                              "synthetic"])
 def test_copy_has_the_originals_code(orig, copy):
     assert _body(copy, rename=True) == _body(orig)
 

@@ -157,12 +157,14 @@ def test_server_concurrent_submits(server):
         assert humans == [] and scale == 1.0 and tuple(padded) == (64, 64)
 
 
-#: modules the port gained with on-card augmentation, the flax reader and
-#: int8 serving; the import check must reach each
+#: modules the port gained with on-card augmentation, the flax reader,
+#: int8 serving, the parallel layer and the AOT artifact; the import
+#: check must reach each
 NEW_MODULES = ("cli.export", "data.device_aug", "data.raw_cache",
                "decode.legacy", "models.quant", "runtime.flax_msgpack",
                "parallel", "parallel.mesh", "parallel.inference",
-               "parallel.spatial")
+               "parallel.spatial", "runtime.aot", "decode.synthetic",
+               "utils.hardware", "utils.profiling")
 
 
 def test_port_imports_without_jax():
@@ -200,7 +202,8 @@ def test_port_imports_without_jax():
                                   "scripts/profile_torch_decode.py",
                                   "scripts/profile_torch_kernels.py",
                                   "scripts/profile_torch_match.py",
-                                  "scripts/profile_torch_nms.py"])
+                                  "scripts/profile_torch_nms.py",
+                                  "scripts/profile_torch_aot.py"])
 def test_card_checks_name_only_the_port(path):
     """The card-side scripts, tests and the inputs they load import
     neither JAX nor the JAX package: the card has no JAX."""

@@ -18,6 +18,12 @@
     python -m torch_ekpose_tpu_torch.cli.export -m vgg2016 -c ours.pt \
         --to-torch -o theirs.pth
 
+    # an AOT deployment artifact for batch 8 of 368x432 frames on the
+    # card (then: cli.serve --aot vgg2016.ekx; runtime/aot.py)
+    python -m torch_ekpose_tpu_torch.cli.export -m vgg2016 -c ckpt.pth \
+        --aot --dtype bfloat16 --batch 8 --input-size 368x432 \
+        -o vgg2016.ekx
+
 Counterpart of the JAX package's ``cli/export.py``. In: a reference
 ``.pth``/``.pt`` (or the port's own), a ``.ckpt`` of either trainer, or
 the JAX package's native ``.msgpack`` (float or int8;
@@ -26,10 +32,12 @@ the JAX package's native ``.msgpack`` (float or int8;
 parameters bf16, as ``models/factory.py::cast_params`` serves them;
 ``int8``/``int8_static``: ``models/quant.py``'s ``weight_q``, ``scale``,
 ``bias`` [and ``act_scale``] entries), or with ``--to-torch`` the
-reference's float32 ``module.``-prefixed ``state_dict``. ``--aot`` (the
-JAX package's StableHLO artifact) is ROADMAP Queue 1 item 8 and exits.
-Calibration runs the model on ``--device`` (default ``cuda``); the other
-conversions need no device.
+reference's float32 ``module.``-prefixed ``state_dict``, or with
+``--aot`` a deployment artifact (``runtime/aot.py``: the batched serving
+pipeline for one ``--batch`` and ``--input-size``, exported in ``--dtype``
+on ``--device`` for that device's platform). Calibration and ``--aot``
+run the model on ``--device`` (default ``cuda``); the other conversions
+need no device.
 """
 
 from __future__ import annotations
@@ -71,13 +79,22 @@ def _parser() -> argparse.ArgumentParser:
                         help="inference resolution the calibration frames "
                         "are padded to (match serving)")
     parser.add_argument("--device", default="cuda",
-                        help="torch device the calibration runs on")
+                        help="torch device the calibration (and --aot's "
+                        "export) runs on")
     parser.add_argument("--to-torch", action="store_true",
                         help="write the reference's float32 state_dict "
                         "(``module.`` keys) instead of the port's .pt")
     parser.add_argument("--aot", action="store_true",
-                        help="an AOT deployment artifact (ROADMAP Queue 1 "
-                        "item 8; refused here)")
+                        help="write an AOT deployment artifact instead: the "
+                        "batched serving pipeline as two torch.export "
+                        "programs + metadata, loadable with "
+                        "runtime.aot.load_pipeline on the same platform "
+                        "(export on the card for the card)")
+    parser.add_argument("--batch", type=int, default=1,
+                        help="(--aot) batch size baked into the artifact")
+    parser.add_argument("--input-size", default=None, metavar="HxW",
+                        help="(--aot) fixed input frame size, e.g. "
+                        "368x432; default: dest-size square")
     return parser
 
 
@@ -123,14 +140,40 @@ def _static(args, state) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _input_size(args):
+    """(H, W) of ``--input-size``, default ``--dest-size`` square."""
+    if not args.input_size:
+        return args.dest_size, args.dest_size
+    try:
+        h, w = (int(v) for v in args.input_size.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--input-size must be HxW, got {args.input_size!r}")
+    return h, w
+
+
+def _export_aot(args, state) -> None:
+    """Write an AOT deployment artifact (``runtime/aot.py``)."""
+    from torch_ekpose_tpu_torch.runtime.aot import export_pipeline
+    from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
+
+    h, w = _input_size(args)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+        args.dtype, args.dtype)
+    est = PoseEstimator(args.model, state, device=args.device,
+                        compute_dtype=dtype, dest_size=max(h, w))
+    if args.dtype == "int8_static":
+        est.calibrate(_calibration_frames(args.calib_images, args.dest_size))
+    meta = export_pipeline(est, args.output, batch=args.batch, height=h,
+                           width=w)
+    size = os.path.getsize(args.output)
+    print(f"INFO: wrote AOT artifact ({meta['platform']}, batch "
+          f"{meta['batch']}, {h}x{w}, {args.dtype}; {size / 1e6:.1f} MB) "
+          f"-> {args.output}")
+
+
 def main(argv=None) -> None:
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.aot:
-        raise SystemExit(
-            "--aot (an ahead-of-time deployment artifact, the JAX "
-            "package's runtime/aot.py) is not ported yet (ROADMAP Queue 1 "
-            "item 8)")
     if args.dtype == "int8_static" and args.calib_images is None \
             and not args.to_torch:
         parser.error("--dtype int8_static requires --calib-images")
@@ -143,6 +186,11 @@ def main(argv=None) -> None:
     else:
         state = _float_state(args.model, state)
 
+    if args.aot:
+        os.makedirs(os.path.dirname(os.path.abspath(args.output)),
+                    exist_ok=True)
+        _export_aot(args, state)
+        return
     if args.to_torch:
         out = {f"module.{k}": v for k, v in state.items()}
         what = "reference-format float32 state_dict"

@@ -3,6 +3,10 @@
     python -m torch_ekpose_tpu_torch.cli.serve -m vgg2016 -c ckpt.pth \\
         --device cuda --host 0.0.0.0 --port 8000 --max-batch 8
 
+    # or serve an AOT deployment artifact (cli.export --aot): no model
+    # build, no checkpoint; the artifact is the model
+    python -m torch_ekpose_tpu_torch.cli.serve --aot pose.ekx --port 8000
+
     curl -X POST --data-binary @image.jpg http://localhost:8000/pose
     curl http://localhost:8000/healthz
 
@@ -10,6 +14,8 @@
 are stripped); without one the weights are random, drawn from ``--seed``.
 Decoding a posted image needs cv2 or Pillow. The server always decodes
 on the card, so ``--decode-backend`` takes ``device`` (or ``jax``) only.
+With ``--aot`` each frame is letterboxed into the artifact's one frame
+size (``runtime/aot.py::AotServingAdapter``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="max frames sharing one estimate_batch call")
     parser.add_argument("--max-wait-ms", type=float, default=5.0,
                         help="micro-batching window")
+    parser.add_argument("--aot", default=None, metavar="ARTIFACT",
+                        help="serve an AOT deployment artifact "
+                        "(cli.export --aot) instead of building the model; "
+                        "-m/-c/--dtype are ignored and --max-batch is the "
+                        "artifact's batch")
     # the server batches frames and decodes on the card, as the JAX CLI's
     # parser.set_defaults(decode_backend="jax") does
     parser.set_defaults(decode_backend="device")
@@ -52,9 +63,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def build_estimator(args: argparse.Namespace):
+    """The server's estimator: the artifact's adapter with ``--aot`` (its
+    batch becomes ``--max-batch``), else a ``PoseEstimator``."""
+    if not args.aot:
+        return PoseEstimator(**common.estimator_kwargs(args))
+    from torch_ekpose_tpu_torch.runtime.aot import (
+        AotServingAdapter, load_pipeline)
+
+    estimator = AotServingAdapter(load_pipeline(args.aot))
+    args.max_batch = estimator.pipeline.batch
+    meta = estimator.pipeline.meta
+    print(f"INFO: serving AOT artifact {args.aot} (batch {args.max_batch}, "
+          f"{meta['height']}x{meta['width']})")
+    return estimator
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    estimator = PoseEstimator(**common.estimator_kwargs(args))
+    estimator = build_estimator(args)
     server = PoseServer(
         estimator, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

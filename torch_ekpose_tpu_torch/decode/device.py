@@ -28,7 +28,6 @@ The public layout is the JAX package's: ``[B, H, W, 19]`` heatmaps and
 from __future__ import annotations
 
 import contextlib
-import functools
 import warnings
 from typing import List, NamedTuple, Optional
 
@@ -44,9 +43,10 @@ from torch_ekpose_tpu_torch.ops.resize import resize_matrix
 from torch_ekpose_tpu_torch.utils.human import BodyPart, Human
 
 __all__ = [
-    "DecodeResult", "LIMB_PAIRS", "build_packed_decoder", "cap_saturation",
-    "decode_batched", "humans_from_result", "pack_result",
-    "packed_to_humans", "paf_to_pose_device", "tf32", "unpack_result",
+    "DecodeResult", "DecodeTables", "LIMB_PAIRS", "PackedDecoder",
+    "build_packed_decoder", "cap_saturation", "decode_batched",
+    "decode_tables", "humans_from_result", "pack_result", "packed_to_humans",
+    "paf_to_pose_device", "tf32", "unpack_result",
 ]
 
 #: the 19 limbs' (part a, part b) indices, COCO order
@@ -96,12 +96,21 @@ def _f32(value: float) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _tables(device: torch.device, upsamp: int):
-    """(limb part pairs [19, 2], limb PAF channels [19, 2], bicubic x8
-    matrix [40, 5]) on ``device``, made once: building them per call would
-    be a blocking host->device copy, which waits for the forward."""
-    return (
+class DecodeTables(NamedTuple):
+    """The decode's constant tables on one device: limb part pairs
+    [19, 2] int32, limb PAF channels [19, 2] int64 and the bicubic x8
+    matrix [40, 5] float32."""
+
+    pairs: torch.Tensor
+    chans: torch.Tensor
+    up_mat: torch.Tensor
+
+
+def decode_tables(device, upsamp: int) -> DecodeTables:
+    """Fresh :class:`DecodeTables` on ``device`` (a host->device copy on a
+    card, which waits for the queued work: :class:`PackedDecoder` makes
+    them once, as buffers)."""
+    return DecodeTables(
         torch.tensor(LIMB_PAIRS, dtype=torch.int32, device=device),
         torch.tensor(constants.COCO_PAIRS_NET, device=device),
         torch.from_numpy(
@@ -134,13 +143,12 @@ def _find_topk_peaks(hm: torch.Tensor, thresh: float, k: int):
     return idx % w, idx // w, score > _NEG
 
 
-def _refine_peaks(hm: torch.Tensor, px, py, upsamp: int):
+def _refine_peaks(hm: torch.Tensor, px, py, upsamp: int, up_mat):
     """Sub-pixel refinement (reference paf_to_pose.py:94-131) for
-    [B, 18, K] peak grids. Returns float (x, y, score) in the upsampled
-    frame."""
+    [B, 18, K] peak grids, with the x``upsamp`` bicubic matrix ``up_mat``
+    [40, 5]. Returns float (x, y, score) in the upsampled frame."""
     b, n, h, w = hm.shape
     k = px.shape[-1]
-    up_mat = _tables(hm.device, upsamp)[2]                 # [40, 5]
     offs = torch.arange(-_WIN, _WIN + 1, device=hm.device)
     gy = (py[..., None] + offs).clamp(0, h - 1)            # [B, 18, K, 5]
     gx = (px[..., None] + offs).clamp(0, w - 1)
@@ -172,16 +180,16 @@ def _refine_peaks(hm: torch.Tensor, px, py, upsamp: int):
 
 def _score_all_limbs(
     paf: torch.Tensor, xi, yi, peak_valid, stride: int, n_steps: int,
-    thresh_paf: float, thresh_cnt1: int,
+    thresh_paf: float, thresh_cnt1: int, pairs, chans,
 ):
     """[B, 19, K, K] candidate scores, -inf where invalid.
 
-    ``paf`` is [B, 38, H, W]; xi/yi/peak_valid are [B, 18, K]. The
+    ``paf`` is [B, 38, H, W]; xi/yi/peak_valid are [B, 18, K]; ``pairs``
+    and ``chans`` are the limbs' parts and PAF channels [19, 2]. The
     10-sample line integral + criteria of reference pafprocess.cpp:56-92.
     """
     b, _, h, w = paf.shape
     dev = paf.device
-    pairs, chans, _ = _tables(dev, stride)                        # [19, 2] each
 
     ax = xi[:, pairs[:, 0]].float()                               # [B, 19, K]
     ay = yi[:, pairs[:, 0]].float()
@@ -274,31 +282,36 @@ def decode_batched(
     thresh_cnt1: int = constants.THRESH_VECTOR_CNT1,
     thresh_part_cnt: float = constants.THRESH_PART_CNT,
     thresh_human_score: float = constants.THRESH_HUMAN_SCORE,
+    tables: Optional[DecodeTables] = None,
 ) -> DecodeResult:
     """Decode [B, H, W, 19] heatmaps + [B, H, W, 38] PAFs on their device.
 
     Same per-image semantics as the JAX package's ``decode_jax_batched``;
-    one image is the B = 1 case. Runs without a host sync on CUDA.
+    one image is the B = 1 case. ``tables`` are :func:`decode_tables` on
+    the maps' device (made here when not given). Runs without a host sync
+    on CUDA when ``tables`` are given.
     """
     k = max_peaks
     b = heatmaps.shape[0]
-    dev = heatmaps.device
+    if tables is None:
+        tables = decode_tables(heatmaps.device, stride)
+    pairs = tables.pairs
     # NHWC -> NCHW: a view when the maps came from an NCHW forward
     hm = heatmaps.permute(0, 3, 1, 2).float()[:, :18]            # [B, 18, H, W]
     paf = pafs.permute(0, 3, 1, 2).float().contiguous()          # [B, 38, H, W]
     with tf32(False):
         px, py, peak_valid = _find_topk_peaks(hm, thresh_heatmap, k)
-        xf, yf, score = _refine_peaks(hm, px, py, stride)
+        xf, yf, score = _refine_peaks(hm, px, py, stride, tables.up_mat)
         # the assembler stores truncated ints (reference pafprocess.h:26-31)
         xi = torch.trunc(xf).to(torch.int32)
         yi = torch.trunc(yf).to(torch.int32)
         score = torch.where(peak_valid, score, torch.zeros_like(score))
         limb_scores = _score_all_limbs(
-            paf, xi, yi, peak_valid, stride, n_steps, thresh_paf, thresh_cnt1
+            paf, xi, yi, peak_valid, stride, n_steps, thresh_paf,
+            thresh_cnt1, pairs, tables.chans,
         )
     ia, ib, cscore, cvalid = greedy_match(limb_scores)
 
-    pairs = _tables(dev, stride)[0]
     cid1 = pairs[None, :, 0, None] * k + ia.clamp(min=0)
     cid2 = pairs[None, :, 1, None] * k + ib.clamp(min=0)
     pair_flat, cid1_flat, cid2_flat, score_flat, n_valid = _merge_prep(
@@ -339,23 +352,45 @@ def pack_result(res: DecodeResult) -> torch.Tensor:
     )
 
 
-def build_packed_decoder(config: Optional[Config] = None):
+class PackedDecoder(torch.nn.Module):
+    """``(heatmaps [B,H,W,19], pafs [B,H,W,38]) -> packed [B, L]`` with a
+    config's decode settings. Its :class:`DecodeTables` are buffers made
+    once on ``device``, outside any trace, so serving copies nothing to
+    the card a call and an exported decode (``runtime/aot.py``) carries
+    them as constants; maps on another device get fresh tables."""
+
+    def __init__(self, config: Optional[Config] = None, device="cpu"):
+        super().__init__()
+        config = config or default_cfg
+        self.settings = dict(
+            stride=config.MODEL.DOWNSAMPLE,
+            n_steps=config.TEST.NUM_INTERMED_PTS_BETWEEN_KEYPOINTS,
+            max_peaks=config.DECODE.max_peaks_per_part,
+            subset_cap=config.DECODE.max_people * 3,
+            thresh_heatmap=config.TEST.THRESH_HEATMAP,
+            thresh_paf=config.TEST.THRESH_PAF,
+            thresh_cnt1=config.TEST.THRESH_VECTOR_CNT1,
+            thresh_part_cnt=float(config.TEST.THRESH_PART_CNT),
+            thresh_human_score=config.TEST.THRESH_HUMAN_SCORE,
+        )
+        tables = decode_tables(torch.device(device), self.settings["stride"])
+        for name, table in zip(DecodeTables._fields, tables):
+            self.register_buffer(name, table, persistent=False)
+
+    def forward(self, heatmaps: torch.Tensor,
+                pafs: torch.Tensor) -> torch.Tensor:
+        tables = None
+        if self.pairs.device == heatmaps.device:
+            tables = DecodeTables(self.pairs, self.chans, self.up_mat)
+        return pack_result(decode_batched(heatmaps, pafs, tables=tables,
+                                          **self.settings))
+
+
+def build_packed_decoder(config: Optional[Config] = None,
+                         device="cpu") -> PackedDecoder:
     """``(heatmaps [B,H,W,19], pafs [B,H,W,38]) -> packed [B, L]`` with the
-    config's decode settings."""
-    config = config or default_cfg
-    decoder = functools.partial(
-        decode_batched,
-        stride=config.MODEL.DOWNSAMPLE,
-        n_steps=config.TEST.NUM_INTERMED_PTS_BETWEEN_KEYPOINTS,
-        max_peaks=config.DECODE.max_peaks_per_part,
-        subset_cap=config.DECODE.max_people * 3,
-        thresh_heatmap=config.TEST.THRESH_HEATMAP,
-        thresh_paf=config.TEST.THRESH_PAF,
-        thresh_cnt1=config.TEST.THRESH_VECTOR_CNT1,
-        thresh_part_cnt=float(config.TEST.THRESH_PART_CNT),
-        thresh_human_score=config.TEST.THRESH_HUMAN_SCORE,
-    )
-    return lambda heatmaps, pafs: pack_result(decoder(heatmaps, pafs))
+    config's decode settings, its tables on ``device``."""
+    return PackedDecoder(config, device)
 
 
 def paf_to_pose_device(heatmaps, pafs, config: Optional[Config] = None,
@@ -370,7 +405,7 @@ def paf_to_pose_device(heatmaps, pafs, config: Optional[Config] = None,
     maps = [torch.as_tensor(m, dtype=torch.float32, device=device)[None]
             for m in (heatmaps, pafs)]
     with torch.inference_mode():
-        packed = build_packed_decoder(config)(*maps)
+        packed = build_packed_decoder(config, device)(*maps)
     stride = config.MODEL.DOWNSAMPLE
     return packed_to_humans(packed[0].cpu().numpy(),
                             heatmaps.shape[0] * stride,

@@ -5,7 +5,9 @@ twin ``decode/device.py::_greedy_match_one``: for each ``[K, K]``
 candidate matrix (-inf = invalid), K rounds of masked argmax, ties to the
 lowest row and then the lowest column. A round accepts while its max is
 above -inf, then marks that row and column used. Outputs are in
-acceptance order; an empty slot is ``(-1, -1, 0.0, False)``.
+acceptance order; an empty slot is ``(-1, -1, 0.0, False)``. The
+wrapper calls the custom op ``ekpose::greedy_match`` (the twin on the
+CPU, the kernel on CUDA).
 """
 
 from __future__ import annotations
@@ -85,14 +87,34 @@ def greedy_match(scores: torch.Tensor) -> Match:
     """[..., K, K] float32 candidate scores -> (ia, ib int32, score f32,
     valid bool), each [..., K].
 
-    A CPU tensor takes the twin; a CUDA tensor launches
-    ``ekp_greedy_match`` (one block per matrix, whose one warp runs the
-    rounds on cached row maxima; K <= :data:`MAX_K`).
+    Calls the custom op ``ekpose::greedy_match``: a CPU tensor takes the
+    twin; a CUDA tensor launches ``ekp_greedy_match`` (one block per
+    matrix, whose one warp runs the rounds on cached row maxima;
+    K <= :data:`MAX_K`).
     """
-    if scores.device.type == "cpu":
-        return greedy_match_torch(scores)
-    if scores.device.type != "cuda":
+    if scores.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_match: unsupported device {scores.device}")
+    return torch.ops.ekpose.greedy_match(scores)
+
+
+@torch.library.custom_op("ekpose::greedy_match", mutates_args=(),
+                         device_types="cpu")
+def _match_op(scores: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    return greedy_match_torch(scores)
+
+
+@_match_op.register_fake
+def _match_fake(scores):
+    shape = (*scores.shape[:-2], scores.shape[-1])
+    return (scores.new_empty(shape, dtype=torch.int32),
+            scores.new_empty(shape, dtype=torch.int32),
+            scores.new_empty(shape, dtype=torch.float32),
+            scores.new_empty(shape, dtype=torch.bool))
+
+
+@_match_op.register_kernel("cuda")
+def _match_cuda(scores: torch.Tensor) -> Match:
     k = scores.shape[-1]
     if (scores.dtype != torch.float32 or scores.dim() < 2
             or scores.shape[-2] != k):

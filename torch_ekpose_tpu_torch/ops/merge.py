@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``ops/pallas_merge.py`` and of its XLA
 twin ``decode/device.py::_merge_loop_xla``. Per image, a loop over the
 ``n_valid`` pre-compacted connections: each extends, merges or opens a
 row of a ``[cap, 20]`` person table (cols 0-17 flat peak ids, col 18 the
-score sum, col 19 the part count).
+score sum, col 19 the part count). The wrapper calls the custom op
+``ekpose::merge_people`` (the twin on the CPU, the kernel on CUDA), whose
+fake gives the shapes alone: the twin's host read of ``n_valid.max()``
+stays out of an exported graph.
 """
 
 from __future__ import annotations
@@ -129,15 +132,36 @@ def merge_people(
     each image's loop; ``peak_score`` float32 [B, 18*K]. Returns
     (subset [B, cap, 20] f32, active [B, cap] bool).
 
-    A CPU tensor takes the twin; a CUDA tensor launches
-    ``ekp_merge_people`` (cap <= :data:`MAX_CAP`).
+    Calls the custom op ``ekpose::merge_people``: a CPU tensor takes the
+    twin; a CUDA tensor launches ``ekp_merge_people`` (cap <=
+    :data:`MAX_CAP`).
     """
-    if pair.device.type == "cpu":
-        return merge_people_torch(
-            pair, p1, p2, cid1, cid2, score, n_valid, peak_score, cap
-        )
-    if pair.device.type != "cuda":
+    if pair.device.type not in ("cpu", "cuda"):
         raise ValueError(f"merge_people: unsupported device {pair.device}")
+    return torch.ops.ekpose.merge_people(
+        pair, p1, p2, cid1, cid2, score, n_valid, peak_score, int(cap))
+
+
+@torch.library.custom_op("ekpose::merge_people", mutates_args=(),
+                         device_types="cpu")
+def _merge_op(pair: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+              cid1: torch.Tensor, cid2: torch.Tensor, score: torch.Tensor,
+              n_valid: torch.Tensor, peak_score: torch.Tensor,
+              cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return merge_people_torch(
+        pair, p1, p2, cid1, cid2, score, n_valid, peak_score, cap)
+
+
+@_merge_op.register_fake
+def _merge_fake(pair, p1, p2, cid1, cid2, score, n_valid, peak_score, cap):
+    b = pair.shape[0]
+    return (pair.new_empty((b, cap, 20), dtype=torch.float32),
+            pair.new_empty((b, cap), dtype=torch.bool))
+
+
+@_merge_op.register_kernel("cuda")
+def _merge_cuda(pair, p1, p2, cid1, cid2, score, n_valid, peak_score,
+                cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     b, n_slots = pair.shape
     ints = [t.contiguous() for t in (pair, p1, p2, cid1, cid2)]
     score, n_valid, peak_score = (

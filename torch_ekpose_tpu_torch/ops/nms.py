@@ -10,7 +10,10 @@ float32 maps. Only H x W has to be contiguous: the CUDA kernel takes the
 batch and channel strides, so the decoder hands it the 18 part channels
 of the NCHW heatmap as a view, without a copy. The kernel runs one CTA per
 (image, channel, band of rows); :func:`plan_nms` sizes the bands and
-:func:`is_aligned` decides between its 16-byte and 4-byte paths.
+:func:`is_aligned` decides between its 16-byte and 4-byte paths. The
+wrapper calls the custom op ``ekpose::masked_peak_scores`` (the twin on
+the CPU, the kernel on CUDA), so an exported decode holds the kernel as
+one node of its graph (``runtime/aot.py``).
 """
 
 from __future__ import annotations
@@ -108,12 +111,27 @@ def masked_peak_scores_torch(maps: torch.Tensor, thresh: float) -> torch.Tensor:
 def masked_peak_scores(maps: torch.Tensor, thresh: float) -> torch.Tensor:
     """[B, C, H, W] or [C, H, W] float32 -> masked peak scores (contiguous).
 
-    A CPU tensor takes the twin; a CUDA tensor launches ``ekp_nms``.
+    Calls the custom op ``ekpose::masked_peak_scores``: a CPU tensor takes
+    the twin; a CUDA tensor launches ``ekp_nms``.
     """
-    if maps.device.type == "cpu":
-        return masked_peak_scores_torch(maps, thresh)
-    if maps.device.type != "cuda":
+    if maps.device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_peak_scores: unsupported device {maps.device}")
+    return torch.ops.ekpose.masked_peak_scores(maps, float(thresh))
+
+
+@torch.library.custom_op("ekpose::masked_peak_scores", mutates_args=(),
+                         device_types="cpu")
+def _peaks_op(maps: torch.Tensor, thresh: float) -> torch.Tensor:
+    return masked_peak_scores_torch(maps, thresh).contiguous()
+
+
+@_peaks_op.register_fake
+def _peaks_fake(maps, thresh):
+    return maps.new_empty(maps.shape)
+
+
+@_peaks_op.register_kernel("cuda")
+def _peaks_cuda(maps: torch.Tensor, thresh: float) -> torch.Tensor:
     if maps.dtype != torch.float32 or maps.dim() not in (3, 4):
         raise ValueError(
             "masked_peak_scores: expected float32 [B, C, H, W] or [C, H, W], "

@@ -19,7 +19,6 @@ one place the layouts change.
 
 from __future__ import annotations
 
-import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -37,8 +36,8 @@ from torch_ekpose_tpu_torch.ops.resize import resize_image_np
 from torch_ekpose_tpu_torch.utils.human import Human
 
 __all__ = [
-    "PoseEstimator", "nchw_to_nhwc", "nhwc_to_nchw", "padding",
-    "precision_mode", "preprocess",
+    "PoseEstimator", "ServingForward", "imagenet_stats", "nchw_to_nhwc",
+    "nhwc_to_nchw", "padding", "precision_mode", "preprocess",
 ]
 
 
@@ -104,30 +103,60 @@ def padding(
     return im_pad, im_scale, im.shape
 
 
-@functools.lru_cache(maxsize=None)
-def _imagenet_stats(device: torch.device):
-    """ImageNet (mean, std) as float32 tensors on ``device``, made once
-    (a per-call host->device copy would wait for the previous batch)."""
+def imagenet_stats(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet (mean, std) as fresh float32 tensors on ``device`` (a
+    host->device copy on a card, which waits for the queued work:
+    :class:`ServingForward` makes them once, as buffers)."""
     return tuple(
         torch.tensor(v, dtype=torch.float32, device=device)
         for v in (constants.IMAGENET_MEAN, constants.IMAGENET_STD)
     )
 
 
-def preprocess(images: torch.Tensor, mode: str = "vgg") -> torch.Tensor:
+def preprocess(images: torch.Tensor, mode: str = "vgg",
+               stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               ) -> torch.Tensor:
     """[..., H, W, 3] BGR frames (any dtype) -> float32, same layout.
 
-    - ``"vgg"``: /255, BGR->RGB, imagenet mean/std
-      (reference preprocessing.py:32-43);
+    - ``"vgg"``: /255, BGR->RGB, imagenet mean/std (``stats``, made here
+      when not given; reference preprocessing.py:32-43);
     - ``"rtpose"``: /256 - 0.5 (reference preprocessing.py:16-21).
     """
     x = images.float()
     if mode == "vgg":
-        mean, std = _imagenet_stats(x.device)
+        mean, std = stats if stats is not None else imagenet_stats(x.device)
         return (x.flip(-1) / 255.0 - mean) / std
     if mode == "rtpose":
         return x / 256.0 - 0.5
     raise ValueError(f"unknown preprocess mode {mode!r}")
+
+
+class ServingForward(torch.nn.Module):
+    """Frames [B, H, W, 3] (uint8 BGR, on the model's device) -> stage-6
+    (paf, heatmap) as float32 NCHW: :func:`preprocess`, then ``model`` in
+    ``act_dtype``. The ImageNet statistics are buffers made once on
+    ``device``, outside any trace, so serving copies nothing to the card a
+    call and an exported forward (``runtime/aot.py``) carries them as
+    constants. The TF32 flags are the caller's (:func:`precision_mode`)."""
+
+    def __init__(self, model: torch.nn.Module, mode: str, act_dtype,
+                 device):
+        super().__init__()
+        self.model = model
+        self.mode = mode
+        self.act_dtype = act_dtype
+        mean, std = imagenet_stats(device)
+        self.register_buffer("mean", mean, persistent=False)
+        self.register_buffer("std", std, persistent=False)
+
+    def model_input(self, images: torch.Tensor) -> torch.Tensor:
+        """Frames -> the model's NCHW input in ``act_dtype``."""
+        x = nhwc_to_nchw(preprocess(images, self.mode, (self.mean, self.std)))
+        return x.to(self.act_dtype, memory_format=torch.contiguous_format)
+
+    def forward(self, images: torch.Tensor):
+        (paf, heatmap), _ = self.model(self.model_input(images))
+        return paf.float(), heatmap.float()
 
 
 class PoseEstimator:
@@ -212,18 +241,23 @@ class PoseEstimator:
         self._needs_calib = quantize == "static" and not calibrated
         # cast once: halves weight traffic and drops per-call casts
         self.model = cast_params(model, self.act_dtype).eval()
-        self._decode = decode_device.build_packed_decoder(self.config)
+        #: preprocess + forward, the program ``runtime/aot.py`` exports
+        self.serving_forward = ServingForward(
+            self.model, preprocess, self.act_dtype, self.device)
+        self._decode = decode_device.build_packed_decoder(self.config,
+                                                          self.device)
 
     # -- static int8 calibration ------------------------------------------
 
     def _model_input(self, images) -> torch.Tensor:
         """[B, H, W, 3] frames (numpy or tensor) -> the model's NCHW input
         in the activation dtype, on the device."""
-        x = torch.as_tensor(np.ascontiguousarray(images)).to(
-            self.device, non_blocking=True
-        )
-        x = nhwc_to_nchw(preprocess(x, self.preprocess))
-        return x.to(self.act_dtype, memory_format=torch.contiguous_format)
+        return self.serving_forward.model_input(self._upload(images))
+
+    def _upload(self, images) -> torch.Tensor:
+        """[B, H, W, 3] frames (numpy or tensor) on the device."""
+        return torch.as_tensor(np.ascontiguousarray(images)).to(
+            self.device, non_blocking=True)
 
     @torch.inference_mode()
     def calibrate(self, image_batches) -> None:
@@ -254,10 +288,9 @@ class PoseEstimator:
         """Frames -> stage-6 (paf, heatmap) as float32 NCHW on the device."""
         if self._needs_calib:
             self.calibrate([images])
-        x = self._model_input(images)
+        x = self._upload(images)
         with precision_mode(self.precision):
-            (paf, heatmap), _ = self.model(x)
-        return paf.float(), heatmap.float()
+            return self.serving_forward(x)
 
     @torch.inference_mode()
     def _packed(self, images: np.ndarray) -> torch.Tensor:

@@ -188,10 +188,15 @@ class PoseServer:
         Returns (humans, scale, padded_shape). The first request at a new
         shape pays cuDNN's algorithm search and, in a fresh checkout, the
         kernels' build, so the timeout is sized for the cold path."""
-        im_pad, scale, _ = padding(
-            image, self.estimator.dest_size,
-            self.estimator.config.MODEL.DOWNSAMPLE,
-        )
+        if hasattr(self.estimator, "pad_image"):
+            # an AOT artifact serves ONE fixed frame shape: its adapter
+            # letterboxes into it (runtime/aot.py::AotServingAdapter)
+            im_pad, scale = self.estimator.pad_image(image)
+        else:
+            im_pad, scale, _ = padding(
+                image, self.estimator.dest_size,
+                self.estimator.config.MODEL.DOWNSAMPLE,
+            )
         req = _Request(im_pad)
         self._queue.put(req)
         if not req.event.wait(timeout):
