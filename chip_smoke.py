@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
 2. build the seven kernel sources from ``torch_ekpose_tpu_torch/csrc`` with
    nvcc for sm_90a (one process each, all started together) and print
    ptxas's register / shared-memory / spill report, which must cover
-   ``conv3x3_sm90.cu``'s, ``conv3x3_f32.cu``'s and ``block1_sm90.cu``'s
-   kernels;
+   ``conv3x3_sm90.cu``'s, ``conv3x3_f32.cu``'s, ``block1_sm90.cu``'s and
+   ``conv_chain.cu``'s kernels; ``conv_chain.cu``'s (one per chunk width,
+   and the K-sliced one) must have no stack frame and no spill;
 3. hold each decode kernel against its plain PyTorch twin on the card,
    exactly, at the decode path's shapes (K = 32, 96 person rows), NMS
    also bit for bit at ``NMS_CASES`` of ``tests/torch_port_inputs.py``
@@ -30,7 +31,14 @@ Phases (any failure raises and exits non-zero):
    its twin: float32 at the CPU tests' small shapes within 1e-4 of
    max|twin| through ``conv3x3_f32``, one launch a layer (``conv1_fused``
    and ``block1_fused`` take it too in float32), bf16 at those narrow
-   shapes through the fused ``conv_chain.cu`` kernel, at ``SM90_CHAINS``
+   shapes and at ``NARROW_CHAINS`` of ``tests/torch_port_inputs.py`` (the
+   cases whose walk ``tests/test_torch_conv_narrow.py`` emulates: ragged
+   sides, a bias-50 border, 8 layers, weights streamed a chunk at a time,
+   N = 8, the wider chains of ``tests/test_torch_conv_sm90.py`` that take
+   the fused route, ``ci`` = 320 through registers, weights streamed K
+   slice by K slice on a 4x4 tile) through the fused ``conv_chain.cu``
+   kernel, one launch a call,
+   at ``SM90_CHAINS``
    of ``tests/torch_port_inputs.py`` through ``conv_chain``'s sm90 route,
    at small ragged and bias-50 shapes through ``block1_sm90`` and at the
    prefix path's shapes (batch 8, 368x432; bf16 blocks 1-3, conv1_2 +
@@ -41,8 +49,9 @@ Phases (any failure raises and exits non-zero):
    launch count by what its route launches; time twin, kernel and
    cuDNN's ``channels_last`` chain in the input's dtype in turns
    (helpers of ``scripts/profile_torch_conv.py``, loaded by path), and
-   read ``block1_sm90``'s own device time in each mode from one
-   ``torch.profiler`` pass beside its wrapper's;
+   read ``block1_sm90``'s own device time in each mode and
+   ``conv_chain.cu``'s on the narrow block 1 from one ``torch.profiler``
+   pass beside its wrapper's; print the phase's seconds;
 5. decode the four golden scenes of ``tests/data/torch_decode_golden.npz``
    (written by the JAX package) on the card and compare the packed
    buffers: integer fields exact, float fields within rtol 1e-5, and
@@ -414,6 +423,7 @@ def check_conv_kernels(torch, prof, inputs):
     from torch_ekpose_tpu_torch.models.vgg import VGG19Backbone
     from torch_ekpose_tpu_torch.ops import block1, conv_chain as cc
 
+    t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"TF32: torch.backends.cudnn.allow_tf32 = "
@@ -471,6 +481,20 @@ def check_conv_kernels(torch, prof, inputs):
              [(torch.from_numpy(w).cuda(), torch.from_numpy(b).cuda())
               for w, b in ps]), {"pool": pool},
             {"conv3x3_sm90": len(layers)}))
+    # the fused kernel's walk cases (tests/test_torch_conv_narrow.py), bf16,
+    # one conv_chain.cu launch each; their own generator leaves the draws
+    # above as they were
+    walk_rng = np.random.default_rng(SEED + 1)
+    for label, (shape, layers, pool, bias) in inputs.NARROW_CHAINS.items():
+        x, ps = inputs.narrow_arrays(walk_rng, shape, layers, bias)
+        if cc.plan_chain([shape[3]] + [co for _, co in layers],
+                         torch.bfloat16, pool) != "fused":
+            raise AssertionError(f"{label} does not take the fused route")
+        small.append((
+            "conv_chain", f"{label} (walk case)", *chain,
+            (torch.from_numpy(x).cuda().to(torch.bfloat16),
+             [(torch.from_numpy(w).cuda(), torch.from_numpy(b).cuda())
+              for w, b in ps]), {"pool": pool}, {"conv_chain": 1}))
     small_err = {}
     with torch.no_grad():
         for name, label, kernel, twin, args, kwargs, launches in small:
@@ -496,13 +520,17 @@ def check_conv_kernels(torch, prof, inputs):
                      + prof.narrow_cases(frames)):
             calls.append(prof.measure_case(case, reps=5))
             prof.print_case(calls[-1])
-            if case["name"] in ("conv1_fused", "block1_fused"):
-                kernel, args = case["kernel"], case["args"]
+            own = {"conv1_fused": "block1_kernel",
+                   "block1_fused": "block1_kernel"}.get(case["name"])
+            if case["launches"] == {"conv_chain": 1}:
+                own = "conv_chain_kernel"
+            if own:
+                kernel, args, kw = case["kernel"], case["args"], case["kwargs"]
                 device[case["name"]] = prof.device_ms(
-                    lambda: kernel(*args), "block1_kernel", reps=5)
-                print(f"{case['name']}: block1_sm90's own device time "
-                      f"{device[case['name']][0]:.4f} ms, all device work "
-                      f"of the wrapper {device[case['name']][1]:.4f} ms "
+                    lambda: kernel(*args, **kw), own, reps=5)
+                print(f"{case['name']} {case['label']}: {own}'s own device "
+                      f"time {device[case['name']][0]:.4f} ms, all device "
+                      f"work of the wrapper {device[case['name']][1]:.4f} ms "
                       f"(torch.profiler, mean of 5)")
 
     replaces = {"conv_chain": "torch_ekpose_tpu/ops/pallas_conv.py:163",
@@ -537,6 +565,7 @@ def check_conv_kernels(torch, prof, inputs):
             "calls": [{k: c[k] for k in keys} for c in mine],
             "wrapper": wrapper,
         })
+    print(f"phase 4 in {time.perf_counter() - t_phase:.1f} s")
     return records, model, frames
 
 
@@ -2331,6 +2360,15 @@ def check_parallel(torch, prof, kernels, inputs, data: str, tmp: str):
     print(f"phase 14 in {time.perf_counter() - t0:.1f} s")
 
 
+def spill_lines(report: str, kernel: str) -> list:
+    """ptxas's stack-frame and spill line of each function whose name
+    holds ``kernel``, from a ``-Xptxas -v`` report."""
+    lines = report.splitlines()
+    return [nxt.strip() for i, line in enumerate(lines)
+            if "Function properties for" in line and kernel in line
+            for nxt in lines[i + 1:i + 2] if "spill" in nxt]
+
+
 def load_script(name: str):
     """``scripts/<name>.py``, loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -2369,9 +2407,17 @@ def main() -> int:
             print(line)
     for kernel, source in (("conv3x3_kernel", "conv3x3_sm90.cu"),
                            ("conv3x3_f32_kernel", "conv3x3_f32.cu"),
-                           ("block1_kernel", "block1_sm90.cu")):
+                           ("block1_kernel", "block1_sm90.cu"),
+                           ("conv_chain_kernel", "conv_chain.cu")):
         if kernel not in report:
             raise AssertionError(f"no ptxas report for {source}")
+    chain_spills = spill_lines(report, "conv_chain_kernel")
+    print(f"conv_chain.cu's kernel: {chain_spills}")
+    if not chain_spills or any(not line.startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+            for line in chain_spills):
+        raise AssertionError(f"conv_chain.cu's kernel spills or has a "
+                             f"stack frame: {chain_spills}")
     _build.lib()
 
     rng = np.random.default_rng(SEED)

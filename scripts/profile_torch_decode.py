@@ -98,6 +98,23 @@ def time_kernels(seen: dict, prof, reps: int) -> dict:
     return out
 
 
+def time_decode(decode, heat, paf, prof, reps: int) -> tuple:
+    """(mean ms of ``reps`` back-to-back ``decode(heat, paf)`` calls by
+    CUDA events, the device operations one call launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        ms = prof.time_ms(lambda: decode(heat, paf), reps)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            decode(heat, paf)
+            torch.cuda.synchronize()
+    launches = sum(evt.count for evt in trace.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, launches
+
+
 def sm_clock_ghz(cycles: int = 2_000_000) -> float:
     """The SM clock in GHz while one thread spins ``cycles`` clock cycles
     (median of 5, CUDA events)."""
@@ -161,8 +178,13 @@ def main(argv=None) -> int:
             seen = decode_kernel_inputs(est._decode, h, p)
         n_valid = seen["merge_people"][1][6].tolist()
         times = time_kernels(seen, prof, args.reps)
+        with tf32(False):
+            decode_ms, launches = time_decode(est._decode, h, p, prof,
+                                              args.reps)
         print(json.dumps({"maps": label, "repo": os.path.abspath(args.repo),
                           "batch": args.batch, "n_valid": n_valid,
+                          "decode_ms": decode_ms,
+                          "decode_launches": launches,
                           "people": people if label == "golden_tiled"
                           else None, "kernels": times,
                           "sm_clock_ghz": sm_clock_ghz(), "card": card}),

@@ -171,6 +171,38 @@ def test_decode_matches_jax_synth_scenes(small_cfg):
     assert min(counts[:3]) >= 1 and counts[3] == 0
 
 
+@pytest.mark.parametrize("seed", range(5))
+def test_decode_matches_jax_synth_seeds_every_slot(seed):
+    """decode/synthetic.py scenes at the default config (K = 32, so most
+    peak slots hold no peak and refine a patch of Gaussian tails near the
+    float32 normal limit): every field of the packed buffer, the unused
+    slots' refined coordinates too, against
+    ``decode_jax_batched(..., use_pallas_loops=False)``; integer fields
+    exact, float fields within rtol 1e-5; people found. The refinement's
+    two bicubic products must flush as XLA's dot does for this."""
+    rng = np.random.default_rng(seed)
+    scenes = [synth_scene(rng, n) for n in (1, 3, 2)]
+    heat = np.stack([s[0] for s in scenes])
+    pafs = np.stack([s[1] for s in scenes])
+    cfg = Config()
+    port, ref = _decode_both(heat, pafs, cfg)
+    k, cap = cfg.DECODE.max_peaks_per_part, cfg.DECODE.max_people * 3
+    assert inputs.packed_mismatches(port, ref, k, cap, rtol=1e-5) == []
+    people = [len(PD.packed_to_humans(row, 368, 432, cfg)) for row in port]
+    assert min(people) >= 1, people
+
+
+def test_addcmul_is_one_fma_on_the_cpu():
+    """The refinement's emulation of XLA's dot (decode/device.py::
+    _xla_dot5) needs ``torch.addcmul`` to round once, as an fma does: on
+    the CPU its result equals s + a * b rounded once (computed exactly in
+    float64 with a round-to-odd step), and two roundings differ."""
+    s, a, b = inputs.fma_operands("cpu")
+    want = inputs.fma_once(s, a, b)
+    assert torch.equal(torch.addcmul(s, a, b), want)
+    assert not torch.equal(s + a * b, want)
+
+
 def _load_golden_script():
     spec = importlib.util.spec_from_file_location(
         "make_torch_golden",

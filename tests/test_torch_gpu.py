@@ -272,6 +272,50 @@ def _routes(fused, sm90, block1_sm90=0, f32=0):
             block1.block1_fused: block1_sm90, cc.conv3x3_f32: f32}
 
 
+@pytest.mark.parametrize("name", list(inputs.NARROW_CHAINS))
+def test_narrow_chain_walk_cases_match_twin(cuda, name):
+    """The chains whose walk tests/test_torch_conv_narrow.py emulates, in
+    bf16 through one fused ``conv_chain.cu`` launch (on the card's plan:
+    its SMs pick the tile)."""
+    shape, chain, pool, bias = inputs.NARROW_CHAINS[name]
+    x, params = inputs.narrow_arrays(np.random.default_rng(sum(shape)),
+                                     shape, chain, bias)
+    chans = [shape[3]] + [co for _, co in chain]
+    assert cc.plan_chain(chans, torch.bfloat16, pool) == "fused"
+    _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch,
+                  torch.from_numpy(x).to(cuda, torch.bfloat16),
+                  [(torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda))
+                   for w, b in params], pool=pool,
+                  launches=_routes(fused=1, sm90=0))
+
+
+def test_narrow_chain_without_tma(cuda):
+    """An input TMA cannot describe (W * C * 2 % 16 != 0) comes through
+    registers; a pooled one at an odd width as well as a 16-byte one."""
+    rng = np.random.default_rng(5)
+    for shape, chain, pool in (((2, 18, 38, 3), [(3, 16), (16, 16)], True),
+                               ((1, 17, 21, 5), [(5, 24)], False)):
+        x, params = inputs.narrow_arrays(rng, shape, chain)
+        assert shape[2] * shape[3] * 2 % 16
+        _conv_vs_twin(cc.conv_chain, cc.conv_chain_torch,
+                      torch.from_numpy(x).to(cuda, torch.bfloat16),
+                      [(torch.from_numpy(w).to(cuda),
+                        torch.from_numpy(b).to(cuda)) for w, b in params],
+                      pool=pool, launches=_routes(fused=1, sm90=0))
+
+
+def test_addcmul_is_one_fma_on_the_card(cuda):
+    """The refinement's emulation of XLA's dot (decode/device.py::
+    _xla_dot5) needs ``torch.addcmul`` to round once, as an fma does: its
+    result equals s + a * b rounded once (computed exactly in float64
+    with a round-to-odd step), on the card as on the CPU
+    (tests/test_torch_decode.py::test_addcmul_is_one_fma_on_the_cpu)."""
+    s, a, b = inputs.fma_operands(cuda)
+    want = inputs.fma_once(s, a, b)
+    assert torch.equal(torch.addcmul(s, a, b), want)
+    assert not torch.equal(s + a * b, want)        # two roundings differ
+
+
 @pytest.mark.parametrize("shape,ci,co,pool", [
     ((2, 19, 37), 3, 64, False),       # conv1_1: 3 of 8 chunk channels
     ((1, 12, 22), 5, 7, True),         # co % 4 != 0: scalar stores

@@ -203,7 +203,8 @@ def test_port_imports_without_jax():
                                   "scripts/profile_torch_kernels.py",
                                   "scripts/profile_torch_match.py",
                                   "scripts/profile_torch_nms.py",
-                                  "scripts/profile_torch_aot.py"])
+                                  "scripts/profile_torch_aot.py",
+                                  "scripts/profile_torch_chain.py"])
 def test_card_checks_name_only_the_port(path):
     """The card-side scripts, tests and the inputs they load import
     neither JAX nor the JAX package: the card has no JAX."""

@@ -28,7 +28,9 @@ from torch_ekpose_tpu_torch import constants
 from torch_ekpose_tpu_torch.decode.device import LIMB_PAIRS
 
 __all__ = ["EVAL_IDS", "NMS_CASES", "NMS_THRESH", "ReplayMaps",
-           "SM90_CHAINS", "assert_states_close", "chain_arrays",
+           "NARROW_CHAINS", "SM90_CHAINS", "assert_states_close",
+           "fma_once", "fma_operands",
+           "chain_arrays", "narrow_arrays",
            "crowded_maps", "eval_dataset",
            "draw_weight", "eval_rows", "match_scores", "merge_inputs",
            "nms_case", "nms_maps", "packed_mismatches", "peaky_head_",
@@ -56,6 +58,46 @@ SM90_CHAINS = {
     "bn64_bias50": ((1, 18, 24, 64), [(64, 64)], False, 50.0),
     "bn64_mixed": ((1, 12, 34, 128), [(128, 64), (64, 192)], True, None),
 }
+
+#: bf16 chains for ``conv_chain``'s fused kernel (``csrc/conv_chain.cu``)
+#: at small shapes, in ``SM90_CHAINS``' format: the six narrow chains of
+#: tests/test_torch_conv.py (ragged sides, a bias-50 border), an 8-layer
+#: chain, one whose weights stream one chunk at a time, N = 8 layers (with
+#: the next layer's K padding), the timed block's ``[3, 32, 32]`` + pool at
+#: a size that takes its 32x48 tile on one SM, the wider chains of
+#: tests/test_torch_conv_sm90.py that take the fused route, one with
+#: ``ci`` > 256 (the box through registers) and one whose weights fit only
+#: K slice by K slice (a tile narrower than 8).
+NARROW_CHAINS = {
+    "block1_like": ((2, 36, 24, 3), [(3, 16), (16, 16)], True, None),
+    "single": ((2, 20, 16, 8), [(8, 8)], False, None),
+    "ragged": ((2, 34, 20, 4), [(4, 8), (8, 8)], False, None),
+    "widening": ((2, 32, 24, 16), [(16, 24), (24, 32)], True, None),
+    "three_deep": ((2, 16, 16, 8), [(8, 8)] * 3, False, None),
+    "bias50_border": ((2, 16, 16, 4), [(4, 8), (8, 8)], False, 50.0),
+    "eight_deep": ((1, 18, 20, 3), [(3, 16)] + [(16, 16)] * 7, False, None),
+    "staged_weights": ((1, 12, 16, 48), [(48, 48)] * 8, True, None),
+    "n8": ((1, 22, 26, 3), [(3, 8), (8, 8), (8, 8)], True, None),
+    "timed_tile": ((1, 60, 48, 3), [(3, 32), (32, 32)], True, None),
+    "wide_routes": ((1, 12, 16, 64), [(64, 128), (128, 96)], False, None),
+    "w96": ((1, 10, 14, 96), [(96, 128)], True, None),
+    "ci320": ((1, 6, 10, 320), [(320, 100)], False, None),
+    "sliced": ((1, 4, 6, 2048), [(2048, 8)], False, None),
+}
+
+
+def narrow_arrays(rng: np.random.Generator, shape, chain, bias=None):
+    """float32 NHWC input of ``shape`` and ``[(w [3, 3, ci, co], b [co]),
+    ...]`` for ``chain``: normal draws, weights scaled by sqrt(2 / fan-in)
+    (so an 8-layer chain keeps its scale), biases times 0.1 or all equal to
+    ``bias``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    params = [((rng.standard_normal((3, 3, ci, co))
+                * (2 / (9 * ci)) ** 0.5).astype(np.float32),
+               (rng.standard_normal(co) * 0.1).astype(np.float32)
+               if bias is None else np.full(co, bias, np.float32))
+              for ci, co in chain]
+    return x, params
 
 
 def nms_maps(rng: np.random.Generator, b: int, c: int, h: int,
@@ -563,3 +605,32 @@ def stats_mismatches(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
     which are float noise around 1e-8 on both sides)."""
     return [key for key, ref in want.items() if "running_" in key
             and not np.allclose(got[key], ref, rtol=rtol, atol=atol)]
+
+
+def fma_operands(device, n: int = 1 << 20):
+    """Seeded float32 ``(s, a, b)`` for a check of ``s + a * b``: products
+    over twelve decades beside small sums, where one rounding and two
+    differ."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(n, device=device, generator=gen) * 10 ** torch.randint(
+        -6, 6, (n,), device=device, generator=gen).float()
+    b = torch.randn(n, device=device, generator=gen)
+    s = torch.randn(n, device=device, generator=gen) * 1e-3
+    return s, a, b
+
+
+def fma_once(s, a, b):
+    """``s + a * b`` rounded once to float32, as an fma rounds: the product
+    exact in float64, the sum rounded to odd in float64 (then rounding to
+    float32 is exact rounding of the true sum)."""
+    import torch
+
+    p = a.double() * b.double()                    # exact
+    t = s.double() + p
+    bv = t - s.double()
+    err = (s.double() - (t - bv)) + (p - bv)       # t + err == s + p
+    bits = t.view(torch.int64)
+    odd = ((bits - (err * t < 0).long()) | (err != 0).long())
+    return odd.view(torch.float64).float()

@@ -119,13 +119,30 @@ def decode_tables(device, upsamp: int) -> DecodeTables:
     )
 
 
+#: the largest subnormal float32: :func:`_flush_denormals` keeps a value
+#: only where its magnitude is above it
+_SUBNORMAL_MAX = float(np.nextafter(np.float32(np.finfo(np.float32).tiny),
+                                    np.float32(0)))
+
+
 def _flush_denormals(x: torch.Tensor) -> torch.Tensor:
     """Subnormal floats -> 0, as the JAX package's XLA programs compute
     (XLA flushes denormals on the CPU and the TPU). The refinement
     upsamples patches of far-off Gaussian tails, whose subnormal values
     would otherwise move the argmax of an all-but-zero patch."""
-    tiny = torch.finfo(x.dtype).tiny
-    return torch.where(x.abs() < tiny, torch.zeros_like(x), x)
+    return torch.nn.functional.hardshrink(x, _SUBNORMAL_MAX)
+
+
+def _xla_dot5(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``sum_i lhs[..., i] * rhs[..., i]`` (broadcast) as XLA's CPU dot
+    computes a 5-deep float32 product: a chain of fmas in index order,
+    each partial result subnormal -> 0 (flush to zero). ``addcmul`` is one
+    fma (a single rounding); a matmul sums in another order and keeps
+    subnormal products, which moves the argmax of a patch of tails."""
+    acc = _flush_denormals(lhs[..., 0] * rhs[..., 0])
+    for i in range(1, lhs.shape[-1]):
+        acc = _flush_denormals(torch.addcmul(acc, lhs[..., i], rhs[..., i]))
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +173,11 @@ def _refine_peaks(hm: torch.Tensor, px, py, upsamp: int, up_mat):
     patch = torch.gather(
         hm.reshape(b, n, h * w), 2, flat_idx.reshape(b, n, -1)
     ).reshape(b, n, k, _PATCH, _PATCH)
-    up = _flush_denormals(
-        _flush_denormals(up_mat @ _flush_denormals(patch)) @ up_mat.T
-    )                                                      # [B, 18, K, 40, 40]
+    # XLA's order: over the patch rows a first, then over its columns b
+    patch = _flush_denormals(patch)
+    rows = _xla_dot5(up_mat[:, None, :],
+                     patch.transpose(-1, -2)[..., None, :, :])  # [.., 40, 5]
+    up = _xla_dot5(rows[..., :, None, :], up_mat)          # [B, 18, K, 40, 40]
     side = _PATCH * upsamp
     flat = up.reshape(b, n, k, side * side)
     am = flat.argmax(-1)

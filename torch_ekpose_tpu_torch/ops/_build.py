@@ -2,9 +2,7 @@
 
 Each ``csrc/*.cu`` source compiles in its own nvcc process, all started
 together, and one more nvcc call links the objects into one shared library
-with a plain C interface (the fused conv chain's kernel includes
-``conv_common.cuh``, which the library's hash covers too). No source includes PyTorch's
-headers, so the build takes seconds, not the minutes a
+with a plain C interface. No source includes PyTorch's headers, so the build takes seconds, not the minutes a
 ``torch.utils.cpp_extension`` build takes, and its wall time is that of
 the slowest source. The library lands in ``build/torch_ekpose_tpu_torch/``
 beside the package, named by a hash of the sources and flags, and is built
@@ -37,7 +35,6 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("nms.cu", "match.cu", "merge.cu", "conv_chain.cu",
            "block1_sm90.cu", "conv3x3_sm90.cu", "conv3x3_f32.cu")
-HEADERS = ("conv_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_ekpose_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -62,8 +59,8 @@ SIGNATURES = {
     "ekp_merge_people": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
     ),
-    # x, out, w[] , bias[], ch[], n_layers, b, h, w, pool, stream
-    "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, w, bias, plan, plan_ints, stream
+    "ekp_conv_chain": (_P, _P, _P, _P, _P, _I, _P),
     # x, out, w, b1, b2, b, h, w, fused, stream
     "ekp_block1_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # a, b, d, stream
@@ -95,7 +92,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libekpose_kernels_{digest.hexdigest()[:16]}.so"
 
