@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving path, VGG prefix path, every model,
-training, int8 serving, on-card augmentation, the parallel layer and the
-AOT deployment artifact on one CUDA card.
+training, int8 serving, on-card augmentation, the parallel layer, the
+AOT deployment artifact, the space-to-depth prefix and the folded int8
+forward on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -224,7 +225,24 @@ Phases (any failure raises and exits non-zero):
     ``torch.profiler``: a replay runs no Python); ``AotPipeline.
     estimate_batch`` against the live ``estimate_batch`` by CUDA events
     (median of 20, in turns) with the card's busy ms of each, for vgg2016
-    and mobilenet_thin; one PNG through ``cli.serve --aot``'s server.
+    and mobilenet_thin; one PNG through ``cli.serve --aot``'s server;
+16. the space-to-depth VGG prefix and the folded int8 forward (no kernel
+    of their own: the JAX package runs them as XLA convs and elementwise
+    ops, outside any Pallas kernel), by
+    ``scripts/profile_torch_s2d_folded.py``'s ``run``: (a) seeded
+    vgg2016 at batch 8, 368x432, bf16 and float32 (TF32 off):
+    ``PoseEstimator(s2d_blocks=N)``'s stage-6 maps for N = 1, 2, 3
+    against N = 0 on the card (float32 within 1e-4 of max|N = 0|, bf16 at
+    cosine > 0.999), the card's float32 N = 3 maps of one frame against
+    the CPU port's, ``estimate_batch`` at N = 1 launching each decode
+    kernel once; VGG blocks 1-3 through ``s2d_conv_chain`` against
+    cuDNN's plain blocks and the whole forward at N = 0..3 timed by CUDA
+    events in turns and alone by ``torch.profiler``; (b)
+    ``get_model("vgg2016", quantize="folded")`` on a calibrated
+    int8_static ``state_dict``: the maps at cosine > 0.99 against
+    int8_static's, the card against the CPU port (phase 13(c)'s rule),
+    and both forwards' ms by events, busy ms and kernels by
+    ``torch.profiler``.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result JSON.
@@ -2449,6 +2467,9 @@ def main() -> int:
         t0 = time.perf_counter()
         load_script("profile_torch_aot").run(torch, inputs, prof, tmp)
         print(f"phase 15 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    load_script("profile_torch_s2d_folded").run(torch, prof)
+    print(f"phase 16 in {time.perf_counter() - t0:.1f} s")
 
     kernels += convs
     for rec in kernels:

@@ -11,6 +11,8 @@ preprocessed as the serving path does, NHWC float32):
 - ``act_scale/<path>``: the static scales ``calibrate_act_scales``'s math
   measures on that batch;
 - ``int8_static/{paf,heat}``: ``quantize="static"`` on those scales;
+- ``folded/{paf,heat}``: ``quantize="folded"`` (the folded integer
+  pipeline, the same tree) on those scales;
 - ``layer/{input,output}``: backbone ``conv_2`` alone (dynamic scales) on
   a seeded bf16 input, as the cheap currency check's reference.
 
@@ -18,7 +20,7 @@ Every forward runs under ``jit``, as the JAX package serves, with XLA's
 ``--xla_allow_excess_precision=false``, so each bf16 op rounds its output
 to bf16 as the port's eager ops do (by default XLA may keep float32
 between fused ops). Keys hold NHWC float32 maps; bf16 values are exact
-in float32. About 45 s of CPU.
+in float32. About 40 s of CPU.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_int8_golden.py
 """
@@ -122,6 +124,9 @@ def golden() -> dict:
     static = get_model(NAME, dtype=jnp.bfloat16, quantize="static")
     out["int8_static/paf"], out["int8_static/heat"] = _maps(
         jax.jit(static.apply, static_argnames="train"), svars, x)
+    folded = get_model(NAME, dtype=jnp.bfloat16, quantize="folded")
+    out["folded/paf"], out["folded/heat"] = _maps(
+        jax.jit(folded.apply, static_argnames="train"), svars, x)
     for path, value in _scales(svars["params"]).items():
         out[f"act_scale/{path}"] = value
     out["layer/input"] = layer_input()

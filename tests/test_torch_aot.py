@@ -317,7 +317,9 @@ def test_int8_artifact_matches_live(tmp_path):
     meta = aot.export_pipeline(est, path, 1, 64, 64)
     assert meta["dtype"] == "int8"
     frames = FRAMES[:1]
-    got = aot.load_pipeline(path).packed(frames).numpy()
+    pipe = aot.load_pipeline(path)
+    os.remove(path)                   # ~100 MB, read into memory
+    got = pipe.packed(frames).numpy()
     np.testing.assert_array_equal(got, est._packed(frames).numpy())
 
 

@@ -33,6 +33,7 @@ from torch_ekpose_tpu_torch.cli import (  # noqa: E402
     serve,
     vis_output,
 )
+from torch_ekpose_tpu_torch.runtime import estimator as estimator_module  # noqa: E402,E501
 from torch_ekpose_tpu_torch.runtime.estimator import (  # noqa: E402
     PoseEstimator,
 )
@@ -188,9 +189,23 @@ def test_refused_options(main, argv, error, needle):
     (cli_eval.main, ["--compilation-cache", "/tmp/c", "-d", "coco"]),
     (serve.main, ["--s2d-blocks", "1"]),
 ], ids=["s2d", "compilation_cache", "s2d_serve"])
-def test_flags_the_port_leaves_out_are_unknown(main, argv, capsys):
-    """The JAX CLI's TPU flags are not in the port's parsers, so argparse
-    refuses them before anything is built."""
+def test_flags_the_port_leaves_out_are_unknown(main, argv, capsys,
+                                               monkeypatch):
+    """The JAX CLI's XLA cache flag is not in the port's parsers, so
+    argparse refuses it before anything is built; ``--s2d-blocks`` is
+    parsed, and reaches the model the estimator builds."""
+    if "--s2d-blocks" in argv:
+        seen = {}
+
+        def build(*args, **kwargs):
+            seen.update(kwargs)
+            raise _Stop
+
+        monkeypatch.setattr(estimator_module, "init_model", build)
+        with pytest.raises(_Stop):
+            main(["--device", "cpu"] + argv)
+        assert seen["s2d_blocks"] == 1
+        return
     with pytest.raises(SystemExit) as exit_:
         main(["--device", "cpu"] + argv)
     assert exit_.value.code == 2

@@ -120,6 +120,7 @@ def test_native_checkpoints_read_bit_equal(tmp_path, vgg_variables, dtype):
     got, want = _read_both(path)
     assert assert_same_tree(got, want) > 50
     state = load_variables(name, path)
+    os.remove(path)                   # up to 50 MB
     bridge = state_dict_from_jax(want, name)
     assert sorted(state) == sorted(bridge)
     if dtype.startswith("int8"):

@@ -9,6 +9,7 @@ rtol 1e-4 and atol 1e-4 * max|reference output|.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -59,6 +60,7 @@ def test_load_torch_state_dict_strips_module(jax_vars, tmp_path):
     path = str(tmp_path / "ref.pth")
     export_torch_checkpoint(jax_vars, path=path)
     state = load_torch_state_dict(path)
+    os.remove(path)                   # 200 MB
     assert not any(k.startswith("module.") for k in state)
     get_model("vgg2016", device="cpu").load_state_dict(state, strict=True)
 
@@ -115,15 +117,18 @@ def test_init_model_distributions():
                          + ["quantize", "s2d"])
 def test_unported_options_raise(name):
     """int8 serving is refused for every ds model name (the JAX package
-    quantizes the dense-conv vgg family only), vgg2016's folded int8
-    pipeline and s2d_blocks are rejected (ROADMAP Queue 1 item 9)."""
+    quantizes the dense-conv vgg family only); vgg2016 builds its folded
+    int8 pipeline and its s2d_blocks route, and s2d_blocks is refused for
+    the ds names, as in the JAX package."""
     if name == "s2d":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            get_model("vgg2016", device="cpu", s2d_blocks=1)
+        model = get_model("vgg2016", device="meta", s2d_blocks=1)
+        assert model.model0.s2d_blocks == 1
+        with pytest.raises(ValueError, match="vgg family"):
+            get_model("mobilenet_thin", device="meta", s2d_blocks=1)
         return
     if name == "quantize":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            get_model("vgg2016", device="cpu", quantize="folded")
+        model = get_model("vgg2016", device="meta", quantize="folded")
+        assert model.model0.backbone[2].fold
         return
     with pytest.raises(ValueError, match="dense-conv vgg family"):
         get_model(name, device="cpu", quantize=True)

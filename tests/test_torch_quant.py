@@ -257,9 +257,18 @@ def test_quantized_layout_matches_jax(variables, float_state):
 @pytest.mark.parametrize("name", ["mobilenet_thin", "shufflenetV2_0.5x",
                                   "folded"])
 def test_ds_names_and_folded_are_refused(name):
+    """The ds names are refused in every int8 mode; ``quantize="folded"``
+    builds vgg2016 and loads an int8_static ``state_dict`` strictly (the
+    same tree), and a folded conv on the dynamic scale raises, as in the
+    JAX package."""
     if name == "folded":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_model("vgg2016", device="meta", quantize="folded")
+        folded = get_model("vgg2016", device="meta", quantize="folded")
+        static = get_model("vgg2016", device="cpu", quantize="static")
+        folded.load_state_dict(static.state_dict(), strict=True,
+                               assign=True)
+        assert sorted(folded.state_dict()) == sorted(static.state_dict())
+        with pytest.raises(ValueError, match="static"):
+            QuantConv(8, 8, 3, static=False, fold=True)
         return
     for quantize in (True, "static"):
         with pytest.raises(ValueError, match="dense-conv vgg family"):
@@ -288,6 +297,7 @@ def test_jax_int8_static_msgpack_serves_in_the_port(variables, tmp_path):
     path = str(tmp_path / "vgg2016_int8s.msgpack")
     save_checkpoint(path, qvars)
     state = load_variables("vgg2016", path)
+    os.remove(path)                   # 50 MB
     assert state["model0.backbone.2.weight_q"].dtype == torch.int8
     est = PoseEstimator("vgg2016", state, device="cpu",
                         compute_dtype="int8_static")
@@ -333,7 +343,8 @@ def test_export_round_trip(float_state, tmp_path, capsys):
     same weights (bf16: rounded), int8_static with the act_scales its
     calibration measured, and serves; ``--aot`` (``runtime/aot.py``,
     ``tests/test_torch_aot.py``) refuses int8_static without calibration
-    frames, as the JAX CLI does."""
+    frames, as the JAX CLI does. Each file goes as soon as the checks
+    that read it have run (vgg2016 is 200 MB in float32)."""
     src = str(tmp_path / "vgg2016.pth")
     torch.save(float_state, src)
     images = tmp_path / "calib"
@@ -341,29 +352,46 @@ def test_export_round_trip(float_state, tmp_path, capsys):
     rng = np.random.default_rng(0)
     for i in range(2):
         _png(images / f"{i}.png", rng)
-    out = {}
-    for dtype in export.DTYPES:
-        out[dtype] = str(tmp_path / f"{dtype}.pt")
-        argv = ["-c", src, "-o", out[dtype], "--dtype", dtype]
+
+    def exported(dtype):
+        out = str(tmp_path / f"{dtype}.pt")
+        argv = ["-c", src, "-o", out, "--dtype", dtype]
         if dtype == "int8_static":
             argv += ["--calib-images", str(images), "--dest-size", "64",
                      "--device", "cpu"]
         export.main(argv)
-    ref = str(tmp_path / "ref.pth")
-    export.main(["-c", out["float32"], "-o", ref, "--to-torch"])
+        return out
 
+    assert export.DTYPES == ("float32", "bfloat16", "int8", "int8_static")
+    out = exported("float32")
+    ref = str(tmp_path / "ref.pth")
+    export.main(["-c", out, "-o", ref, "--to-torch"])
+    os.remove(out)
     for key, value in load_variables("vgg2016", ref).items():
         torch.testing.assert_close(value, float_state[key], rtol=0, atol=0)
-    half = load_variables("vgg2016", out["bfloat16"])
+    os.remove(ref)
+
+    out = exported("bfloat16")
+    half = load_variables("vgg2016", out)
+    os.remove(out)
     assert half["model0.backbone.0.weight"].dtype == torch.bfloat16
     torch.testing.assert_close(half["model0.backbone.0.weight"],
                                float_state["model0.backbone.0.weight"].to(
                                    torch.bfloat16), rtol=0, atol=0)
-    int8 = load_variables("vgg2016", out["int8"])
+    del half
+
+    out = exported("int8")
+    int8 = load_variables("vgg2016", out)
     assert int8.keys() == quantize_variables(
         float_state, get_model("vgg2016", device="meta",
                                quantize=True)).keys()
-    calibrated = load_variables("vgg2016", out["int8_static"])
+    with pytest.raises(SystemExit, match="do not convert back"):
+        export.main(["-c", out, "-o", str(tmp_path / "x.pt")])
+    os.remove(out)
+
+    out = exported("int8_static")
+    calibrated = load_variables("vgg2016", out)
+    os.remove(out)
     scales = [float(v) for k, v in calibrated.items()
               if k.endswith(".act_scale")]
     assert len(scales) == 79 and 1.0 not in scales
@@ -385,11 +413,11 @@ def test_export_round_trip(float_state, tmp_path, capsys):
         from torch_ekpose_tpu_torch.cli.common import check_dtype
 
         check_dtype(int8, "bfloat16")
-    with pytest.raises(SystemExit, match="do not convert back"):
-        export.main(["-c", out["int8"], "-o", str(tmp_path / "x.pt")])
     capsys.readouterr()
     with pytest.raises(SystemExit):
         export.main(["-c", src, "-o", str(tmp_path / "a.bin"), "--aot",
                      "--dtype", "int8_static"])
     assert "requires --calib-images" in capsys.readouterr().err
     assert not (tmp_path / "a.bin").exists()
+    os.remove(src)
+    assert not [f for f in os.listdir(tmp_path) if f != "calib"]

@@ -76,10 +76,12 @@ def test_estimate_batch_maps_and_decode_match_jax(estimators):
 
 
 def test_estimator_refuses_unported_options():
-    """s2d_blocks is rejected naming its ROADMAP item; int8 serves the vgg
-    family only, as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEstimator(device="cpu", s2d_blocks=1)
+    """s2d_blocks builds vgg2016's space-to-depth route and is refused
+    with int8, as in the JAX package; int8 serves the vgg family only."""
+    assert PoseEstimator(device="cpu", s2d_blocks=1).model.model0.s2d_blocks \
+        == 1
+    with pytest.raises(ValueError, match="s2d_blocks"):
+        PoseEstimator(device="cpu", s2d_blocks=1, compute_dtype="int8")
     with pytest.raises(ValueError, match="vgg family"):
         PoseEstimator("mobilenet_thin", device="cpu", compute_dtype="int8")
     with pytest.raises(ValueError, match="compute_dtype"):

@@ -155,6 +155,7 @@ def test_cli_train_runs_on_the_cpu(tmp_path, data_dir):
         str(tmp_path / "logs")])
     assert trainer.model_name == "vgg2016" and trainer.step == 2
     assert (tmp_path / "out" / "epoch_0.ckpt").exists()
+    os.remove(tmp_path / "out" / "epoch_0.ckpt")    # 600 MB: vgg2016 + Adam
     logs = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "logs")
             for f in fs]
     assert {os.path.basename(p) for p in logs} >= {"metrics.jsonl",
@@ -202,6 +203,7 @@ def test_imagenet_backbone_and_warmup(tmp_path, data_dir):
         "--warmup_epochs", "1", "--out-dir", str(out),
         "--logdir", str(tmp_path / "logs")])
     assert (out / "warmup").is_dir() and trainer.step == 1
+    os.remove(path)                   # 65 MB
     with open(next(os.path.join(d, "logging.log") for d, _, fs in
                    os.walk(tmp_path / "logs") if "logging.log" in fs)) as f:
         log = f.read()

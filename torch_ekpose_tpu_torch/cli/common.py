@@ -16,9 +16,11 @@ int8 checkpoint needs one of them. ``--num-devices N`` (``cli.eval``,
 ``cli.run_image``; :func:`add_mesh_arg`) spreads the work over N
 devices: the first N CUDA devices, or N CPU "devices" under ``--device
 cpu`` (one process, as the JAX tests' virtual CPU devices); more than
-are visible is an error. The JAX CLI's flags the port has no use for
-(``--s2d-blocks``, ``--compilation-cache``) are left out, so argparse
-refuses them.
+are visible is an error. ``--s2d-blocks N`` runs vgg2016's first N VGG19
+blocks through the weight-exact space-to-depth decomposition
+(``ops/s2d_conv.py``; refused with an int8 ``--dtype``, as by the JAX
+CLI). The JAX CLI's ``--compilation-cache`` (an XLA cache) is left out,
+so argparse refuses it.
 """
 
 from __future__ import annotations
@@ -77,6 +79,11 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (the reference's "
                         "--device flag; the JAX CLI's --platform)")
+    parser.add_argument("--s2d-blocks", type=int, default=0,
+                        choices=[0, 1, 2, 3],
+                        help="run the first N VGG19 blocks through the "
+                        "weight-exact space-to-depth decomposition (vgg "
+                        "family; the same checkpoint; ops/s2d_conv.py)")
     parser.add_argument("--dest-size", type=int, default=368,
                         help="inference resolution: the long image side is "
                         "resized to this before padding")
@@ -171,6 +178,7 @@ def estimator_kwargs(args, config: Optional[Config] = None) -> dict:
         preprocess=args.preprocess,
         dest_size=args.dest_size,
         decode_backend=args.decode_backend,
+        s2d_blocks=args.s2d_blocks,
         seed=args.seed,
     )
 

@@ -2,10 +2,9 @@
 
 Counterpart of the JAX package's ``models/factory.py``: the eight named
 variants of the reference factory (lib/network/networks.py:10-68) with
-their width multipliers, and vgg2016's int8 serving variants
-(``quantize=True`` or ``"static"``, ``models/quant.py``). The
-space-to-depth backbone and the folded int8 pipeline raise naming the
-ROADMAP item that rejects them.
+their width multipliers, vgg2016's int8 serving variants
+(``quantize=True``, ``"static"`` or ``"folded"``, ``models/quant.py``)
+and its space-to-depth backbone (``s2d_blocks``, ``ops/s2d_conv.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +13,8 @@ import torch
 from torch import nn
 
 from torch_ekpose_tpu_torch.models.heads import OpenPose
-from torch_ekpose_tpu_torch.models.layers import depth_fn, init_conv_
+from torch_ekpose_tpu_torch.models.layers import (
+    FoldMaxPool2d, FoldReLU, depth_fn, init_conv_)
 from torch_ekpose_tpu_torch.models.mobilenet import MobileNetBackbone
 from torch_ekpose_tpu_torch.models.mobilenet_v2 import MobileNetV2Backbone
 from torch_ekpose_tpu_torch.models.quant import (
@@ -41,20 +41,26 @@ MODEL_REGISTRY = {
 MODEL_NAMES = tuple(MODEL_REGISTRY)
 
 
-def _build(model_name: str, device, remat: bool) -> OpenPose:
+def _build(model_name: str, device, remat: bool,
+           s2d_blocks: int) -> OpenPose:
     backbone, conv_width, conv_width2 = MODEL_REGISTRY[model_name]
     if conv_width is None:
-        return OpenPose(backbone(device=device), device=device, remat=remat)
+        return OpenPose(backbone(device=device, s2d_blocks=s2d_blocks),
+                        device=device, remat=remat)
     return OpenPose(backbone(conv_width, device=device), branch="ds",
                     width=depth_fn(conv_width2), device=device, remat=remat)
 
 
-def _quantize_convs(model: OpenPose, static: bool) -> None:
+def _quantize_convs(model: OpenPose, static: bool, fold: bool) -> None:
     """Swap every conv of the vgg network but the input conv and each
     branch's final projection for a :class:`QuantConv` at the same
     ``nn.Sequential`` index (the JAX package's ``quantize`` on
     ``VGG19Backbone`` and ``VggBranch``), and those two kinds for a
-    :class:`FloatConv` (flax's bias after the rounded conv)."""
+    :class:`FloatConv` (flax's bias after the rounded conv). With
+    ``fold``, the ReLU after each folded conv and a max pool after that
+    ReLU become their deferring kinds, at the same indices, so the
+    ``state_dict`` keys stay put; a folded conv followed by anything but
+    a ReLU raises, as the JAX package's ``ConvBlock`` does."""
     backbone = model.model0.backbone
     units = [(backbone, backbone[0])] + [
         (branch, branch.final()) for stage in range(1, model.num_stages + 1)
@@ -65,12 +71,28 @@ def _quantize_convs(model: OpenPose, static: bool) -> None:
             if not isinstance(conv, nn.Conv2d):
                 continue
             k = conv.kernel_size[0]
-            seq[idx] = (
-                FloatConv(conv.in_channels, conv.out_channels, k,
-                          padding=k // 2, device=conv.weight.device)
-                if conv is kept else
-                QuantConv(conv.in_channels, conv.out_channels, k, static,
-                          device=conv.weight.device))
+            if conv is kept:
+                seq[idx] = FloatConv(conv.in_channels, conv.out_channels, k,
+                                     padding=k // 2,
+                                     device=conv.weight.device)
+                continue
+            seq[idx] = QuantConv(conv.in_channels, conv.out_channels, k,
+                                 static, device=conv.weight.device,
+                                 fold=fold)
+            if fold:
+                _defer_after(seq, idx)
+
+
+def _defer_after(seq: nn.Sequential, idx: int) -> None:
+    """The folded conv at ``seq[idx]``: its ReLU, and a max pool after
+    that, defer into its record."""
+    if idx + 1 >= len(seq) or type(seq[idx + 1]) is not nn.ReLU:
+        raise ValueError("folded int8 supports plain conv+relu blocks only")
+    seq[idx + 1] = FoldReLU(inplace=True)
+    if idx + 2 < len(seq) and type(seq[idx + 2]) is nn.MaxPool2d:
+        pool = seq[idx + 2]
+        seq[idx + 2] = FoldMaxPool2d(pool.kernel_size, pool.stride,
+                                     pool.padding)
 
 
 def get_model(
@@ -86,8 +108,14 @@ def get_model(
     per-layer ``act_scale`` buffers (``models/quant.py``: convert a float
     ``state_dict`` with ``quantize_variables``, calibrate with
     ``calibrate_act_scales``); the input conv and each branch's final 1x1
-    projection stay float convs. The ds names raise ``ValueError``, as in
+    projection stay float convs. ``quantize="folded"`` is the static
+    variant running the folded integer pipeline (the same ``state_dict``,
+    deferred dequantization). The ds names raise ``ValueError``, as in
     the JAX package.
+
+    ``s2d_blocks=N`` (0-3, vgg2016 only, not with ``quantize``) runs the
+    first N VGG19 blocks through the weight-exact space-to-depth
+    decomposition (``ops/s2d_conv.py``); the ``state_dict`` is the same.
 
     ``remat=True`` recomputes the backbone's and each CPM branch's
     activations in the backward pass (``torch.utils.checkpoint``; the
@@ -98,14 +126,9 @@ def get_model(
             f"unknown model {model_name!r}; available: {sorted(MODEL_NAMES)}"
         )
     if quantize:
-        if quantize == "folded":
-            raise NotImplementedError(
-                "quantize='folded' (the JAX package's deferred-dequantize "
-                "pipeline, a measured negative there) is rejected "
-                "(ROADMAP Queue 1 item 9); use quantize='static'")
-        if quantize not in (True, "static"):
-            raise ValueError(f"quantize must be False, True or 'static', "
-                             f"got {quantize!r}")
+        if quantize not in (True, "static", "folded"):
+            raise ValueError(f"quantize must be False, True, 'static' or "
+                             f"'folded', got {quantize!r}")
         if MODEL_REGISTRY[model_name][1] is not None:
             raise ValueError(
                 f"int8 quantization supports the dense-conv vgg family "
@@ -117,15 +140,14 @@ def get_model(
         if remat:
             # remat is a training knob, the int8 modes are serving-only
             raise ValueError("remat does not apply to the int8 modes")
-    if s2d_blocks:
-        raise NotImplementedError(
-            "s2d_blocks is a TPU layout workaround the port rejects "
-            "(ROADMAP Queue 1 item 9)"
-        )
+    if s2d_blocks and MODEL_REGISTRY[model_name][1] is not None:
+        raise ValueError(f"s2d_blocks applies to the vgg family only "
+                         f"(requested {model_name!r})")
     # built on the meta device, so no default initialization runs
-    model = _build(model_name, "meta", remat)
+    model = _build(model_name, "meta", remat, s2d_blocks)
     if quantize:
-        _quantize_convs(model, static=quantize == "static")
+        _quantize_convs(model, static=quantize in ("static", "folded"),
+                        fold=quantize == "folded")
     return model.to_empty(device=device)
 
 

@@ -16,6 +16,12 @@ weight and bias stay float32 tensors in a bf16 model (holding
 bf16-rounded values, see ``models/factory.py::cast_params``), as the CUDA
 kernel takes a bf16 input only with float32 parameters and statistics.
 
+In the folded int8 model (``models/quant.py``) the ReLU and the max pool
+after a folded ``QuantConv`` are :class:`FoldReLU` and
+:class:`FoldMaxPool2d`: on a ``QuantAcc`` record they defer into it (the
+JAX package's ``ConvBlock`` and ``max_pool`` on a record); on a tensor
+they are ``nn.ReLU`` and ``nn.MaxPool2d``.
+
 Initialization mirrors the reference (reference
 lib/network/vgg2016.py:107-126, mobilenet.py): Kaiming-normal fan-out with
 zero bias for every conv (depthwise and pointwise included), N(0, 0.01)
@@ -33,9 +39,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm2d", "ConvBN", "DSConv", "batch_norm", "conv_relu",
-           "depth_fn", "global_batch_norm", "init_conv_", "max_pool",
-           "sync_batch_norm"]
+from torch_ekpose_tpu_torch.models.quant import QuantAcc
+
+__all__ = ["BatchNorm2d", "ConvBN", "DSConv", "FoldMaxPool2d", "FoldReLU",
+           "batch_norm", "conv_relu", "depth_fn", "global_batch_norm",
+           "init_conv_", "max_pool", "sync_batch_norm"]
 
 #: BatchNorm epsilon of the reference (torch's default) and the JAX package
 BN_EPS = 1e-5
@@ -206,6 +214,29 @@ class DSConv(nn.Module):
 def max_pool(window: int = 2, stride: int = 2, padding: int = 0) -> nn.Module:
     """Max pool; the padding is -inf, as in the JAX package."""
     return nn.MaxPool2d(kernel_size=window, stride=stride, padding=padding)
+
+
+class FoldReLU(nn.ReLU):
+    """``nn.ReLU`` that defers into a folded conv's record: the next
+    folded conv clips at 0 in its requantize, or :func:`realize`
+    applies it."""
+
+    def forward(self, x):
+        if isinstance(x, QuantAcc):
+            return x.replace(relu=True)
+        return super().forward(x)
+
+
+class FoldMaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` that defers into a folded conv's record: the
+    consumer pools its int8 requantized data (pad -128), or
+    :func:`realize` its real activations (pad -inf)."""
+
+    def forward(self, x):
+        if isinstance(x, QuantAcc):
+            return x.replace(pools=x.pools + ((
+                self.kernel_size, self.stride, self.padding),))
+        return super().forward(x)
 
 
 def depth_fn(conv_width: float, min_depth: int = 8):

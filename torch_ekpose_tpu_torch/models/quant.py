@@ -34,14 +34,28 @@ convs over 185 channels run at K = 49 x 192) and a short M with zero
 rows.
 
 The network's input conv and each branch's final 1x1 projection stay
-bf16 (:class:`FloatConv`, ``models/factory.py``); the depthwise-separable family is refused,
-as is the JAX package's ``quantize="folded"`` (a measured negative
-result there, ROADMAP Queue 1 item 9).
+bf16 (:class:`FloatConv`, ``models/factory.py``); the depthwise-separable
+family is refused.
+
+The folded pipeline (``quantize="folded"``, the JAX package's
+``QuantConv(static_act=True, fold=True)``): a folded conv returns its
+int32 accumulator as a :class:`QuantAcc` record with the affine that
+maps it to real activations, and defers the ReLU and max pools that
+follow it (``models/layers.py::FoldReLU``, ``FoldMaxPool2d``). The next
+folded conv requantizes the record in ONE int32 -> int8 pass in its own
+static scale, ``clip(round(acc * (mult / sx) + bias / sx), 0 if relu
+else -127, 127)`` (the affine as one fma, ``torch.addcmul``, as the JAX
+CPU program fuses it), then runs the deferred pools on int8 data (the
+requantize is monotone per channel, so max commutes with it);
+:func:`realize` materializes a record in the activations' dtype at the
+backbone's end and before each branch's final projection.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
@@ -49,9 +63,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["FloatConv", "QuantConv", "calibrate_act_scales", "has_act_scales",
-           "int8_conv2d", "is_quantized", "pack_weight", "quant_convs",
-           "quantize_kernel", "quantize_variables"]
+__all__ = ["FloatConv", "QuantAcc", "QuantConv", "calibrate_act_scales",
+           "has_act_scales", "int8_conv2d", "is_quantized", "pack_weight",
+           "quant_convs", "quantize_kernel", "quantize_variables",
+           "realize"]
 
 #: the JAX package's float32 reciprocal of 127 (a multiply, not a divide,
 #: so its numpy and device conversions agree bit for bit)
@@ -60,6 +75,70 @@ _INV127 = np.float32(1.0 / 127.0)
 _TINY = 1e-12
 #: ``torch._int_mm`` on the card: rows > 16, K and N multiples of 8
 _MIN_ROWS, _ALIGN = 17, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantAcc:
+    """The deferred output of a folded static-scale :class:`QuantConv`
+    (the JAX package's ``QuantAcc``): the int32 accumulator ``acc``
+    (NCHW, a ``channels_last`` view of ``_int_mm``'s [B*H*W, C]),
+    ``mult = act_scale * scale`` and ``bias`` (float32 [C]) mapping it to
+    real activations, the activations' ``dtype``, and the ReLU and max
+    pools (``(window, stride, padding)`` in order) deferred to its
+    consumer: another folded conv (:meth:`requantize`) or
+    :func:`realize`."""
+
+    acc: torch.Tensor
+    mult: torch.Tensor
+    bias: torch.Tensor
+    dtype: torch.dtype
+    relu: bool = False
+    pools: tuple = ()
+
+    def replace(self, **changes) -> "QuantAcc":
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def shape(self):
+        n, c, h, w = self.acc.shape
+        for window, stride, padding in self.pools:
+            h = (h + 2 * padding - window) // stride + 1
+            w = (w + 2 * padding - window) // stride + 1
+        return (n, c, h, w)
+
+    def requantize(self, sx: torch.Tensor) -> torch.Tensor:
+        """The consumer's int8 input in its scale ``sx``: the producer's
+        dequantize, bias and ReLU and this requantize in one pass, then
+        the deferred pools on the int8 data."""
+        y = torch.addcmul((self.bias / sx)[:, None, None], self.acc.float(),
+                          (self.mult / sx)[:, None, None])
+        xq = torch.round(y).clamp(0 if self.relu else -127, 127)
+        return _apply_pools(xq.to(torch.int8), self.pools, -128)
+
+
+def _apply_pools(y: torch.Tensor, pools, pad_value) -> torch.Tensor:
+    """The deferred max pools; ``pad_value`` is the domain's minimum
+    (-128 for int8, -inf for floats). A max over ``unfold`` windows:
+    ``max_pool2d`` checks an int8 input's size against int8's range."""
+    for window, stride, padding in pools:
+        if padding:
+            y = F.pad(y, (padding,) * 4, value=pad_value)
+        y = y.unfold(2, window, stride).unfold(3, window, stride).amax(
+            dim=(4, 5))
+    return y
+
+
+def realize(x, dtype: Optional[torch.dtype] = None):
+    """A :class:`QuantAcc` as real activations in ``dtype`` (default its
+    own): dequantize + bias (one fma), ReLU, the deferred pools. Anything
+    else passes through."""
+    if not isinstance(x, QuantAcc):
+        return x
+    y = torch.addcmul(x.bias[:, None, None], x.acc.float(),
+                      x.mult[:, None, None])
+    if x.relu:
+        y = torch.relu(y)
+    return _apply_pools(y, x.pools, -math.inf).to(dtype or x.dtype)
 
 
 def quantize_kernel(weight: torch.Tensor):
@@ -127,6 +206,7 @@ class FloatConv(nn.Conv2d):
     layers would see other scales than the JAX package's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = realize(x)          # a branch's last record (folded model)
         y = F.conv2d(x, self.weight, None, self.stride, self.padding)
         return y + self.bias[:, None, None]
 
@@ -135,12 +215,16 @@ class QuantConv(nn.Module):
     """A conv (SAME padding, stride 1, bias) whose weight is int8; see
     the module docstring for its numerics. ``static`` selects the
     calibrated ``act_scale`` over the per-example dynamic scale. The
-    output has the input's dtype."""
+    output has the input's dtype; with ``fold`` (static only) it is a
+    :class:`QuantAcc` record, and the input may be one."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
-                 static: bool = False, device=None):
+                 static: bool = False, device=None, fold: bool = False):
         super().__init__()
+        if fold and not static:
+            raise ValueError("fold=True requires static=True")
         self.static = static
+        self.fold = fold
         self.register_buffer("weight_q", torch.zeros(
             out_ch, in_ch, kernel, kernel, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(out_ch, device=device))
@@ -164,12 +248,22 @@ class QuantConv(nn.Module):
 
     def extra_repr(self) -> str:
         o, c, k, _ = self.weight_q.shape
-        return f"{c}, {o}, kernel_size={k}, static={self.static}"
+        return (f"{c}, {o}, kernel_size={k}, static={self.static}, "
+                f"fold={self.fold}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         """A height-split ``x`` (``parallel/spatial.py``) takes its
         dynamic scale over every stripe and its halo rows from the stripes
-        next to each."""
+        next to each. A folded conv under :func:`calibrate_act_scales`
+        runs unfolded."""
+        fold = self.fold and self.observed is None
+        if isinstance(x, QuantAcc):
+            if not fold:
+                raise TypeError("QuantAcc records only flow between "
+                                "folded QuantConvs")
+            sx = self.act_scale.clamp_min(_TINY)
+            xq = x.requantize(sx)
+            return self._conv(xq, sx, x.dtype, fold)
         xf = x.float()
         if self.static and self.observed is None:
             sx = self.act_scale.clamp_min(_TINY)
@@ -183,15 +277,23 @@ class QuantConv(nn.Module):
                 seen = sx.max() * 127.0
                 self.observed = torch.maximum(self.observed, seen)
         xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+        return self._conv(xq, sx, x.dtype, fold)
+
+    def _conv(self, xq, sx: torch.Tensor, dtype: torch.dtype, fold: bool):
         k = self.weight_q.shape[-1]
         if hasattr(xq, "conv_rows"):      # height-split (parallel/spatial.py)
+            if fold:
+                raise NotImplementedError(
+                    "the folded int8 pipeline runs on one device")
             acc = xq.conv_rows(k, 1, k // 2, 0, lambda rows, move: int8_conv2d(
                 rows, move(self.wmat), k, pad_h=0))
         else:
             acc = int8_conv2d(xq, self.wmat, k)
+        if fold:
+            return QuantAcc(acc, sx * self.scale, self.bias, dtype)
         y = torch.addcmul(self.bias[:, None, None], acc.float(),
                           sx * self.scale[:, None, None])
-        return y.to(x.dtype)
+        return y.to(dtype)
 
 
 def quant_convs(model: nn.Module) -> Iterator[tuple]:

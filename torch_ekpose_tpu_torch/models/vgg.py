@@ -12,6 +12,12 @@ conv kernels of ``ops/conv_chain.py`` and ``ops/block1.py``, the
 counterpart of the JAX package's ``scripts/profile_fused_conv.py`` and
 ``scripts/profile_block1.py``. The serving forward stays on cuDNN, as the
 JAX backbone never calls those kernels.
+
+``VGG19Backbone(s2d_blocks=N)`` runs the first N (0-3) pooled blocks
+through the weight-exact space-to-depth decomposition
+(``ops/s2d_conv.py``, cuDNN convs), reading the same modules' weights,
+so the ``state_dict`` is the same either way; the folded int8 model
+(``models/quant.py``) realizes its deferred record at the backbone's end.
 """
 
 from __future__ import annotations
@@ -19,11 +25,13 @@ from __future__ import annotations
 from torch import nn
 
 from torch_ekpose_tpu_torch.models.layers import conv_relu, max_pool
+from torch_ekpose_tpu_torch.models.quant import realize
 from torch_ekpose_tpu_torch.ops.block1 import block1_fused, conv1_fused
 from torch_ekpose_tpu_torch.ops.conv_chain import conv_chain
+from torch_ekpose_tpu_torch.ops.s2d_conv import s2d_conv_chain
 
-__all__ = ["BLOCK1_ROUTES", "PREFIX_BLOCKS", "PREFIX_END", "VGG19Backbone",
-           "VGG19_PLAN", "chain_params", "prefix_forward"]
+__all__ = ["BLOCK1_ROUTES", "BLOCK_ENDS", "PREFIX_BLOCKS", "PREFIX_END",
+           "VGG19Backbone", "VGG19_PLAN", "chain_params", "prefix_forward"]
 
 #: (convs_per_block, out_channels); a 2x2/2 max pool follows each of the
 #: first three blocks. This is exactly torchvision vgg19 features[:23].
@@ -32,12 +40,18 @@ VGG19_PLAN = ((2, 64), (2, 128), (4, 256), (2, 512))
 
 class VGG19Backbone(nn.Module):
     """VGG19 features[:23] + 3x3(512->256) + 3x3(256->128), stride 8 out.
-    NCHW in, ``[B, 128, H/8, W/8]`` out."""
+    NCHW in, ``[B, 128, H/8, W/8]`` out.
+
+    ``s2d_blocks`` (0-3): the first that many pooled blocks run through
+    ``s2d_conv_chain(pool=True)`` on their convs' own weights, and their
+    ReLU and pool modules are skipped; H and W must then be even down to
+    the last such block (the serving frames' multiples of 8 are)."""
 
     out_channels = 128
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, s2d_blocks: int = 0):
         super().__init__()
+        self.s2d_blocks = min(s2d_blocks, 3)
         layers = []
         in_ch = 3
         for block_i, (n_convs, feats) in enumerate(VGG19_PLAN):
@@ -53,13 +67,23 @@ class VGG19Backbone(nn.Module):
         self.backbone = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.backbone(x)
+        layers = self.backbone
+        if self.s2d_blocks:
+            for block in PREFIX_BLOCKS[:self.s2d_blocks]:
+                convs = [layers[i] for i in block]
+                x = s2d_conv_chain(x, [(c.weight, c.bias) for c in convs],
+                                   pool=True)
+            layers = layers[BLOCK_ENDS[self.s2d_blocks - 1]:]
+        # the folded int8 model's deferred record feeds every stage
+        return realize(layers(x))
 
 
 #: ``backbone`` indices of the convs of blocks 1, 2 and 3; a 2x2/2 pool
 #: ends each, and ``backbone[:PREFIX_END]`` is conv1_1 .. pool3
 PREFIX_BLOCKS = ((0, 2), (5, 7), (10, 12, 14, 16))
-PREFIX_END = 19
+#: the ``backbone`` index after each of those blocks' pool
+BLOCK_ENDS = (5, 10, 19)
+PREFIX_END = BLOCK_ENDS[-1]
 #: how :func:`prefix_forward` runs block 1
 BLOCK1_ROUTES = ("conv_chain", "block1_fused", "conv1_fused")
 

@@ -57,7 +57,7 @@ class ShardedPoseEstimator:
                  config: Optional[Config] = None, *, mesh=None,
                  compute_dtype=torch.bfloat16, precision: str = "fast",
                  preprocess: str = "vgg", dest_size: int = 368,
-                 seed: int = 0):
+                 s2d_blocks: int = 0, seed: int = 0):
         from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
 
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -65,7 +65,7 @@ class ShardedPoseEstimator:
         options = dict(config=config, compute_dtype=compute_dtype,
                        precision=precision, preprocess=preprocess,
                        dest_size=dest_size, decode_backend="device",
-                       seed=seed)
+                       s2d_blocks=s2d_blocks, seed=seed)
         #: one estimator per distinct device, the first one's model the
         #: one calibrated (static int8) and copied to the others
         self._replicas = {}

@@ -13,9 +13,11 @@ conv and insert the halo exchanges; here the split is explicit:
   ``cat`` or shuffle, BN in eval mode, the casts) runs on each stripe;
   ``Conv2d`` (3x3, 7x7, 1x1, the stride-2 and depthwise convs, with the
   port's symmetric ``k // 2`` padding), max pools (the 2x2/2 pools and
-  ShuffleNetV2's 3x3/2 with padding 1) and ``QuantConv``
-  (:meth:`Stripes.conv_rows`) first gather the halo rows they read from
-  the stripes next to them (``.to(device)`` and ``torch.cat``, which
+  ShuffleNetV2's 3x3/2 with padding 1), ``QuantConv``
+  (:meth:`Stripes.conv_rows`) and the space-to-depth blocks of
+  ``--s2d-blocks`` (:meth:`Stripes.s2d_rows`) first gather the halo rows
+  they read from the stripes next to them (``.to(device)`` and
+  ``torch.cat``, which
   autograd carries back), with zero rows (-inf for a pool) only beyond
   the image's own edges; the bilinear resizes of MobileNetV2 and
   ShuffleNetV2 read their two source rows wherever they lie; a reduction
@@ -235,6 +237,27 @@ class Stripes:
             out.append(y[:, :, :want])
         return Stripes(out, self.replicas)
 
+    def s2d_rows(self, layers: int, pool: bool, fn: Callable) -> "Stripes":
+        """A space-to-depth chain of ``layers`` SAME 3x3 convs [+ a 2x2/2
+        pool] (``ops/s2d_conv.py``) on every stripe: ``fn(rows, move)``
+        runs it, with the chain's own padding, on the stripe's rows and up
+        to ``2 * layers`` rows each side, cut at the image's edges, so
+        the rows it keeps never read a cut window's edge. Every stripe
+        boundary must be even (the frame's ``8 * N`` padding makes those
+        of VGG blocks 1-3 so)."""
+        offsets, height = self.offsets, self.height
+        if any(o % 2 for o in offsets):
+            raise ValueError(f"space-to-depth stripes need even row "
+                             f"boundaries, got {offsets}")
+        halo, scale = 2 * layers, 2 if pool else 1
+        out = []
+        for part, a, b in zip(self.parts, offsets[:-1], offsets[1:]):
+            lo, hi = max(a - halo, 0), min(b + halo, height)
+            y = fn(self.rows(lo, hi, part.device),
+                   lambda t, d=part.device: self.replicas.move(t, d))
+            out.append(y[:, :, (a - lo) // scale:(b - lo) // scale])
+        return Stripes(out, self.replicas)
+
     def gather(self, device=None, dtype=None) -> torch.Tensor:
         """The whole activation on ``device`` (default: the first
         stripe's), in ``dtype`` if given."""
@@ -441,7 +464,7 @@ class SpatialPoseEstimator:
                  config: Optional[Config] = None, *, mesh=None,
                  compute_dtype=torch.bfloat16, precision: str = "fast",
                  preprocess: str = "vgg", dest_size: int = 368,
-                 seed: int = 0):
+                 s2d_blocks: int = 0, seed: int = 0):
         from torch_ekpose_tpu_torch.runtime.estimator import PoseEstimator
 
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -450,7 +473,7 @@ class SpatialPoseEstimator:
             model_name, state_dict, config, device=self.devices[0],
             compute_dtype=compute_dtype, precision=precision,
             preprocess=preprocess, dest_size=dest_size,
-            decode_backend="device", seed=seed)
+            decode_backend="device", s2d_blocks=s2d_blocks, seed=seed)
         self.config = self._single.config
         self.dest_size = dest_size
         self.model = self._single.model

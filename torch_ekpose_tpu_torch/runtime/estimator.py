@@ -175,8 +175,10 @@ class PoseEstimator:
     first frames it serves, unless the ``state_dict`` carries calibrated
     ``act_scale`` entries. ``decode_backend`` is one of
     ``decode/api.py``'s backends and decides how :meth:`estimate` decodes;
-    the batched calls always decode on the device. Options the port does
-    not have yet raise ``NotImplementedError`` instead of being ignored.
+    the batched calls always decode on the device. ``s2d_blocks`` runs
+    vgg2016's first N VGG blocks through the space-to-depth decomposition
+    (``ops/s2d_conv.py``; the same ``state_dict``; not with int8, as in
+    the JAX package).
     """
 
     def __init__(
