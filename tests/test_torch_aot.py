@@ -21,7 +21,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 import urllib.request
 import zipfile
 
@@ -40,7 +39,6 @@ from torch_ekpose_tpu.decode.synthetic import (  # noqa: E402
     canonical_humans, synth_scene)
 from torch_ekpose_tpu.runtime import PoseEstimator as JaxEstimator  # noqa: E402
 from torch_ekpose_tpu.runtime.checkpoint import convert_torch_checkpoint  # noqa: E402
-from torch_ekpose_tpu.utils import profiling as jax_profiling  # noqa: E402
 from torch_ekpose_tpu_torch.cli import export as cli_export  # noqa: E402
 from torch_ekpose_tpu_torch.cli import serve as cli_serve  # noqa: E402
 from torch_ekpose_tpu_torch.config import Config  # noqa: E402
@@ -459,39 +457,19 @@ def test_peak_flops_by_card_name(name, bf16, fp32):
     assert list(hardware.BF16_PEAK_FLOPS)[0] == "h100 pcie"
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    """The port's ``StepTimer`` and the JAX package's, on the same clock
-    readings (7 steps through a window of 5), keep the same samples and
-    give the same stats."""
-    readings = np.cumsum(np.random.default_rng(2).uniform(
-        1e-3, 5e-2, 2 * 7)).tolist()
-    clock = time.perf_counter
-
-    def run(timer):
-        ticks = iter(readings)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        try:
-            assert timer.stats() == {}
-            for _ in range(7):
-                with timer:
-                    pass
-        finally:
-            monkeypatch.setattr(time, "perf_counter", clock)
-        return timer
-
-    port = run(profiling.StepTimer(window=5))
-    ref = run(jax_profiling.StepTimer(window=5))
-    assert len(port.samples) == 5 and port.samples == ref.samples
-    assert port.stats() == ref.stats()
-    assert set(port.stats()) == {"mean_ms", "p50_ms", "p99_ms", "fps"}
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The exporter writes one Chrome trace, and the program's spans are
+    among its events while it is active (the recorder off and empty
+    again after)."""
+    est = PoseEstimator(MODEL, device="cpu", compute_dtype=torch.float32)
     with profiling.trace(None):
         pass
     with profiling.trace(str(tmp_path)):
-        torch.ones(8).sum()
+        est.estimate_batch(np.zeros((1, 64, 64, 3), np.uint8))
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
     assert len(traces) == 1
     with open(tmp_path / traces[0]) as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    assert "dispatch.forward" in {e.get("name") for e in events}
+    assert profiling.spans() == ([], 0)
+    assert profiling.span("after") is profiling.span("after")

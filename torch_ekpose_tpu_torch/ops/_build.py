@@ -10,6 +10,8 @@ at first use: the first CUDA launch of any kernel in a process pays the
 build, and later processes of the same checkout reuse the file. nvcc's
 output (the ``-Xptxas -v`` register / shared-memory / spill report) is
 kept beside it as ``<library>.log``; :func:`build_report` reads it.
+The spans ``kernels.load`` and ``kernels.build`` (``utils/profiling.py``)
+time the first load and the build.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -27,6 +29,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from torch_ekpose_tpu_torch.utils import profiling
 
 __all__ = ["SMEM_OPTIN", "build", "build_report", "check", "lib",
            "library_path", "stream_of"]
@@ -107,6 +111,12 @@ def build() -> Path:
     path = library_path()
     if path.exists():
         return path
+    with profiling.span("kernels.build"):
+        _compile(path)
+    return path
+
+
+def _compile(path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     # build in a private directory, then rename: concurrent processes of
@@ -135,7 +145,6 @@ def build() -> Path:
         os.replace(lib_tmp, path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return path
 
 
 def build_report() -> str:
@@ -148,13 +157,14 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            cdll = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(cdll, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            cdll.ekp_error_string.argtypes = [ctypes.c_int]
-            cdll.ekp_error_string.restype = ctypes.c_char_p
+            with profiling.span("kernels.load"):
+                cdll = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(cdll, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                cdll.ekp_error_string.argtypes = [ctypes.c_int]
+                cdll.ekp_error_string.restype = ctypes.c_char_p
             _lib = cdll
         return _lib
 

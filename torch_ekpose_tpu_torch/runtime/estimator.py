@@ -19,6 +19,7 @@ one place the layouts change.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,7 @@ from torch_ekpose_tpu_torch.models.factory import (
 from torch_ekpose_tpu_torch.models.quant import (
     calibrate_act_scales, has_act_scales, quantize_variables)
 from torch_ekpose_tpu_torch.ops.resize import resize_image_np
+from torch_ekpose_tpu_torch.utils import profiling
 from torch_ekpose_tpu_torch.utils.human import Human
 
 __all__ = [
@@ -196,58 +198,71 @@ class PoseEstimator:
         s2d_blocks: int = 0,
         seed: int = 0,
     ):
-        quantize = {"int8": True, "int8_static": "static"}.get(
-            compute_dtype, False) if isinstance(compute_dtype, str) else False
-        if not quantize and compute_dtype not in (torch.float32,
-                                                  torch.bfloat16):
-            raise ValueError(
-                f"compute_dtype must be torch.float32, torch.bfloat16, "
-                f"'int8' or 'int8_static', got {compute_dtype!r}"
-            )
-        if decode_backend not in decode_api.BACKENDS:
-            raise ValueError(
-                f"unknown decode_backend {decode_backend!r}; expected one "
-                f"of {decode_api.BACKENDS}"
-            )
-        precision_mode(precision)  # validates the name
-        self.config = config or default_cfg
-        self.model_name = model_name
-        self.device = torch.device(device)
-        self.compute_dtype = compute_dtype
-        #: the activations' dtype: bf16 between an int8 model's convs
-        self.act_dtype = torch.bfloat16 if quantize else compute_dtype
-        self.precision = precision
-        self.preprocess = preprocess
-        self.dest_size = dest_size
-        #: "jax" is the JAX package's name for the device decode
-        self.decode_backend = ("device" if decode_backend == "jax"
-                               else decode_backend)
-        if state_dict is None:
-            model = init_model(
-                model_name, generator=torch.Generator().manual_seed(seed),
-                device=self.device, s2d_blocks=s2d_blocks, quantize=quantize,
-            )
-            calibrated = False
-        else:
-            model = get_model(
-                model_name, device=self.device, s2d_blocks=s2d_blocks,
-                quantize=quantize,
-            )
-            # a state_dict with act_scale entries is a calibrated static
-            # checkpoint: do not calibrate again on arbitrary first frames
-            calibrated = has_act_scales(state_dict)
-            if quantize:
-                state_dict = quantize_variables(state_dict, model)
-            model.load_state_dict(state_dict, strict=True)
-        #: static int8 scales still to measure (on the first frames served)
-        self._needs_calib = quantize == "static" and not calibrated
-        # cast once: halves weight traffic and drops per-call casts
-        self.model = cast_params(model, self.act_dtype).eval()
-        #: preprocess + forward, the program ``runtime/aot.py`` exports
-        self.serving_forward = ServingForward(
-            self.model, preprocess, self.act_dtype, self.device)
-        self._decode = decode_device.build_packed_decoder(self.config,
-                                                          self.device)
+        with profiling.span("estimator.init"):
+            quantize = False
+            if isinstance(compute_dtype, str):
+                quantize = {"int8": True, "int8_static": "static"}.get(
+                    compute_dtype, False)
+            if not quantize and compute_dtype not in (torch.float32,
+                                                      torch.bfloat16):
+                raise ValueError(
+                    f"compute_dtype must be torch.float32, torch.bfloat16, "
+                    f"'int8' or 'int8_static', got {compute_dtype!r}"
+                )
+            if decode_backend not in decode_api.BACKENDS:
+                raise ValueError(
+                    f"unknown decode_backend {decode_backend!r}; expected "
+                    f"one of {decode_api.BACKENDS}"
+                )
+            precision_mode(precision)  # validates the name
+            self.config = config or default_cfg
+            self.model_name = model_name
+            self.device = torch.device(device)
+            self.compute_dtype = compute_dtype
+            #: the activations' dtype: bf16 between an int8 model's convs
+            self.act_dtype = torch.bfloat16 if quantize else compute_dtype
+            self.precision = precision
+            self.preprocess = preprocess
+            self.dest_size = dest_size
+            #: "jax" is the JAX package's name for the device decode
+            self.decode_backend = ("device" if decode_backend == "jax"
+                                   else decode_backend)
+            #: the (B, H, W) batch shapes served so far; its size is how
+            #: often the forward planned a shape anew
+            self.shapes_seen = set()
+            self._batch_ids = itertools.count()
+            with profiling.span("estimator.model"):
+                if state_dict is None:
+                    model = init_model(
+                        model_name,
+                        generator=torch.Generator().manual_seed(seed),
+                        device=self.device, s2d_blocks=s2d_blocks,
+                        quantize=quantize,
+                    )
+                    calibrated = False
+                else:
+                    model = get_model(
+                        model_name, device=self.device,
+                        s2d_blocks=s2d_blocks, quantize=quantize,
+                    )
+                    # a state_dict with act_scale entries is a calibrated
+                    # static checkpoint: do not calibrate again on
+                    # arbitrary first frames
+                    calibrated = has_act_scales(state_dict)
+                    if quantize:
+                        state_dict = quantize_variables(state_dict, model)
+                    model.load_state_dict(state_dict, strict=True)
+                # cast once: halves weight traffic and drops per-call casts
+                self.model = cast_params(model, self.act_dtype).eval()
+            #: static int8 scales still to measure (on the first frames
+            #: served)
+            self._needs_calib = quantize == "static" and not calibrated
+            #: preprocess + forward, the program ``runtime/aot.py`` exports
+            self.serving_forward = ServingForward(
+                self.model, preprocess, self.act_dtype, self.device)
+            with profiling.span("estimator.decoder"):
+                self._decode = decode_device.build_packed_decoder(
+                    self.config, self.device)
 
     # -- static int8 calibration ------------------------------------------
 
@@ -290,14 +305,17 @@ class PoseEstimator:
         """Frames -> stage-6 (paf, heatmap) as float32 NCHW on the device."""
         if self._needs_calib:
             self.calibrate([images])
-        x = self._upload(images)
-        with precision_mode(self.precision):
+        with profiling.span("dispatch.upload"):
+            x = self._upload(images)
+        with profiling.span("dispatch.forward"), \
+                precision_mode(self.precision):
             return self.serving_forward(x)
 
     @torch.inference_mode()
     def _packed(self, images: np.ndarray) -> torch.Tensor:
         paf, heatmap = self._forward(images)
-        return self._decode(nchw_to_nhwc(heatmap), nchw_to_nhwc(paf))
+        with profiling.span("dispatch.decode"):
+            return self._decode(nchw_to_nhwc(heatmap), nchw_to_nhwc(paf))
 
     # -- public API ----------------------------------------------------------
 
@@ -315,28 +333,48 @@ class PoseEstimator:
 
     def estimate_batch_async(self, images: np.ndarray):
         """Enqueue a batch and its device->host copy without waiting;
-        returns a handle for :meth:`collect_batch`."""
+        returns a handle for :meth:`collect_batch`: (packed buffer, its
+        event or None on the CPU, B, H, W, the batch's id)."""
+        shape = images.shape[:3]
+        batch = next(self._batch_ids)
+        if shape in self.shapes_seen:
+            return self._dispatch(images, batch)
+        # the first batch of a shape: cuDNN's plans, lazy module loads,
+        # the kernel library's first load
+        with profiling.span("estimator.first_shape", batch):
+            handle = self._dispatch(images, batch)
+        self.shapes_seen.add(shape)
+        return handle
+
+    def _dispatch(self, images: np.ndarray, batch: int):
         b, h, w = images.shape[:3]
-        packed = self._packed(images)
-        if self.device.type != "cuda":
-            return packed, None, b, h, w
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done, b, h, w
+        with profiling.span("dispatch", batch):
+            packed = self._packed(images)
+            with profiling.span("dispatch.copy"):
+                if self.device.type != "cuda":
+                    return packed, None, b, h, w, batch
+                host = torch.empty(packed.shape, dtype=packed.dtype,
+                                   pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                return host, done, b, h, w, batch
 
     def collect_batch(self, handle) -> List[List[Human]]:
         """Wait for a handle from :meth:`estimate_batch_async` and convert
         its packed buffer to Humans."""
-        packed, done, b, h, w = handle
-        if done is not None:
-            done.synchronize()
-        packed = packed.numpy()
-        return [
-            decode_device.packed_to_humans(packed[i], h, w, self.config)
-            for i in range(b)
-        ]
+        packed, done, b, h, w, batch = handle
+        with profiling.span("collect", batch):
+            with profiling.span("collect.wait"):
+                if done is not None:
+                    done.synchronize()
+            with profiling.span("collect.humans"):
+                packed = packed.numpy()
+                return [
+                    decode_device.packed_to_humans(packed[i], h, w,
+                                                   self.config)
+                    for i in range(b)
+                ]
 
     def get_outputs(
         self, image: np.ndarray
