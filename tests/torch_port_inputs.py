@@ -384,7 +384,9 @@ def replay_forward(estimator, maps: dict) -> None:
     ``maps`` ({image id: (heatmaps, pafs)}) for the frames it is given,
     as float32 NCHW on its device (what the model returns), so its real
     batched decode, ``estimate_batch_async`` and ``collect_batch`` run on
-    them; ``estimator.batches`` counts the forwards."""
+    them; ``estimator.batches`` counts the forwards. The maps are looked
+    up on the host, which no CUDA graph can capture, so every batch runs
+    eagerly."""
     import torch
 
     replay = ReplayMaps(maps, estimator.config)
@@ -396,6 +398,7 @@ def replay_forward(estimator, maps: dict) -> None:
                      .permute(0, 3, 1, 2) for m in replay.lookup(images))
 
     estimator._forward = forward
+    estimator._graphed = lambda images: False
 
 
 def draw_weight(rng: np.random.Generator, kind: str, shape,

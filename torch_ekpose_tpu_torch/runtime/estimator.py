@@ -6,7 +6,9 @@ device, is preprocessed there, runs the model's forward (any of the eight
 names of ``models/factory.py``) in the compute dtype (cuDNN convs, NCHW)
 and the batched decode
 (``decode/device.py``); only the packed ``[B, L]`` result comes back, as
-one device->host copy per batch. One image of any size goes through
+one device->host copy per batch. On a card each batch shape's forward
+and decode are captured once in one CUDA graph and replayed
+(:class:`PoseEstimator`). One image of any size goes through
 ``estimate``, which routes as the JAX package's does: the maps come back
 to the host (``get_outputs``) and ``decode/api.py`` decodes them there
 (``decode_backend="auto"``: native, else numpy), or, with ``"device"``,
@@ -20,7 +22,8 @@ one place the layouts change.
 from __future__ import annotations
 
 import itertools
-from typing import List, Optional, Tuple
+import threading
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,13 +36,15 @@ from torch_ekpose_tpu_torch.models.factory import (
     cast_params, get_model, init_model)
 from torch_ekpose_tpu_torch.models.quant import (
     calibrate_act_scales, has_act_scales, quantize_variables)
+from torch_ekpose_tpu_torch.ops import block1, conv_chain, match, merge, nms
 from torch_ekpose_tpu_torch.ops.resize import resize_image_np
 from torch_ekpose_tpu_torch.utils import profiling
 from torch_ekpose_tpu_torch.utils.human import Human
 
 __all__ = [
-    "PoseEstimator", "ServingForward", "imagenet_stats", "nchw_to_nhwc",
-    "nhwc_to_nchw", "padding", "precision_mode", "preprocess",
+    "MAX_GRAPHS", "PoseEstimator", "ServingForward", "imagenet_stats",
+    "nchw_to_nhwc", "nhwc_to_nchw", "padding", "precision_mode",
+    "preprocess",
 ]
 
 
@@ -161,6 +166,35 @@ class ServingForward(torch.nn.Module):
         return paf.float(), heatmap.float()
 
 
+#: the kernel wrappers that count their launches in ``.launches``
+_COUNTED = (nms.masked_peak_scores, match.greedy_match, merge.merge_people,
+            conv_chain.conv_chain, conv_chain.conv3x3_sm90,
+            conv_chain.conv3x3_f32, block1.conv1_fused, block1.block1_fused)
+
+#: the most batch shapes one estimator captures; a repeated shape past
+#: them stays eager. Callers bound their shapes (a batch size and a frame
+#: size, or ``PoseServer``'s ``max_batch`` sizes a frame size), but
+#: ``estimate`` and ``PoseServer`` pad frames of any size, and each graph
+#: keeps its static frames, its output and its host-side graph.
+MAX_GRAPHS = 64
+
+
+class _Graph(NamedTuple):
+    """One batch shape's forward and decode captured in one CUDA graph
+    over its static uint8 frames ``images`` into its static ``packed``.
+    ``calls``: each of ``_COUNTED``'s calls during the capture, which
+    launched nothing; :meth:`replay` launches them and counts them."""
+    graph: "torch.cuda.CUDAGraph"
+    images: torch.Tensor
+    packed: torch.Tensor
+    calls: Tuple[int, ...]
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in zip(_COUNTED, self.calls):
+            wrapper.launches += n
+
+
 class PoseEstimator:
     """Owns a model + weights on one device and serves pose inference.
 
@@ -181,6 +215,26 @@ class PoseEstimator:
     vgg2016's first N VGG blocks through the space-to-depth decomposition
     (``ops/s2d_conv.py``; the same ``state_dict``; not with int8, as in
     the JAX package).
+
+    **CUDA graphs.** On a card, :meth:`estimate_batch_async` (and so
+    :meth:`estimate_batch` and ``estimate`` with the ``"device"`` decode)
+    runs a batch shape ``(B, H, W)``'s first batch eagerly, as always.
+    Its second batch runs the forward and the decode once on a side
+    stream, which serves it and warms the workspaces, and captures them
+    in one CUDA graph (span ``estimator.capture``); every later batch of
+    the shape copies its frames into the graph's static input and
+    replays it (span ``dispatch.replay``). Nothing is captured on the
+    CPU, while ``int8_static`` still has to calibrate, for frames other
+    than uint8, or past :data:`MAX_GRAPHS` shapes. ``graphs`` maps each
+    captured shape to its graph; ``graph_replays`` counts the batches a
+    replay served. Each kernel wrapper's ``.launches`` still counts one
+    launch a batch: a replay adds what its capture's calls took back.
+    All the estimator's graphs share one memory pool: every replay is
+    followed, on the same stream and under one lock, by the copy of its
+    output to the batch's own pinned buffer before any other replay is
+    enqueued, and no graph reads another's memory. :meth:`get_outputs`,
+    ``estimate`` with a host decode and :meth:`calibrate` stay eager.
+    The graphs hold the weights' memory: change weights in place only.
     """
 
     def __init__(
@@ -231,6 +285,13 @@ class PoseEstimator:
             #: often the forward planned a shape anew
             self.shapes_seen = set()
             self._batch_ids = itertools.count()
+            #: (B, H, W) -> its captured forward and decode
+            self.graphs: Dict[Tuple[int, int, int], _Graph] = {}
+            #: batches served by a graph's replay
+            self.graph_replays = 0
+            self._graph_lock = threading.Lock()
+            self._graph_pool = None
+            self._capture_stream = None
             with profiling.span("estimator.model"):
                 if state_dict is None:
                     model = init_model(
@@ -317,6 +378,69 @@ class PoseEstimator:
         with profiling.span("dispatch.decode"):
             return self._decode(nchw_to_nhwc(heatmap), nchw_to_nhwc(paf))
 
+    def _program(self, x: torch.Tensor) -> torch.Tensor:
+        """Device frames -> packed ``[B, L]``: what a graph captures."""
+        with precision_mode(self.precision):
+            paf, heatmap = self.serving_forward(x)
+        return self._decode(nchw_to_nhwc(heatmap), nchw_to_nhwc(paf))
+
+    def _graphed(self, images: np.ndarray) -> bool:
+        """Whether a batch of a shape served before goes through the
+        shape's graph."""
+        return (self.device.type == "cuda" and images.dtype == np.uint8
+                and not self._needs_calib
+                and (images.shape[:3] in self.graphs
+                     or len(self.graphs) < MAX_GRAPHS))
+
+    def _capture(self, images: torch.Tensor):
+        """Run the program once on the capture stream over the static
+        ``images`` (its output serves the batch; the run sets up cuBLAS's
+        and cuDNN's workspaces), then capture it in one graph of the
+        shared pool; returns (the graph, that output). ``thread_local``:
+        a thread waiting on a batch's event meanwhile does not break the
+        capture."""
+        with torch.cuda.device(self.device):
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            main = torch.cuda.current_stream(self.device)
+            side = self._capture_stream
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                packed = self._program(images)
+            main.wait_stream(side)
+            packed.record_stream(main)
+            before = [k.launches for k in _COUNTED]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                static = self._program(images)
+            calls = tuple(k.launches - n for k, n in zip(_COUNTED, before))
+            for wrapper, n in zip(_COUNTED, calls):
+                wrapper.launches -= n
+        return _Graph(graph, images, static, calls), packed
+
+    @torch.inference_mode()
+    def _replay(self, images: np.ndarray, batch: int) -> torch.Tensor:
+        """Upload ``images`` into their shape's static input and replay
+        the shape's graph, or capture it if it has none; returns the
+        packed output (the caller holds the lock)."""
+        shape = images.shape[:3]
+        graph = self.graphs.get(shape)
+        static = (graph.images if graph is not None else torch.empty(
+            images.shape, dtype=torch.uint8, device=self.device))
+        with profiling.span("dispatch.upload"):
+            static.copy_(torch.as_tensor(np.ascontiguousarray(images)),
+                         non_blocking=True)
+        if graph is None:
+            with profiling.span("estimator.capture", batch):
+                self.graphs[shape], packed = self._capture(static)
+            return packed
+        with profiling.span("dispatch.replay"):
+            graph.replay()
+        self.graph_replays += 1
+        return graph.packed
+
     # -- public API ----------------------------------------------------------
 
     def get_outputs_batch(self, images: np.ndarray):
@@ -334,31 +458,42 @@ class PoseEstimator:
     def estimate_batch_async(self, images: np.ndarray):
         """Enqueue a batch and its device->host copy without waiting;
         returns a handle for :meth:`collect_batch`: (packed buffer, its
-        event or None on the CPU, B, H, W, the batch's id)."""
+        event or None on the CPU, B, H, W, the batch's id). The handle
+        stays valid after later batches."""
         shape = images.shape[:3]
         batch = next(self._batch_ids)
         if shape in self.shapes_seen:
-            return self._dispatch(images, batch)
+            return self._dispatch(images, batch, self._graphed(images))
         # the first batch of a shape: cuDNN's plans, lazy module loads,
         # the kernel library's first load
         with profiling.span("estimator.first_shape", batch):
-            handle = self._dispatch(images, batch)
+            handle = self._dispatch(images, batch, False)
         self.shapes_seen.add(shape)
         return handle
 
-    def _dispatch(self, images: np.ndarray, batch: int):
-        b, h, w = images.shape[:3]
+    def _dispatch(self, images: np.ndarray, batch: int, graphed: bool):
         with profiling.span("dispatch", batch):
-            packed = self._packed(images)
-            with profiling.span("dispatch.copy"):
-                if self.device.type != "cuda":
-                    return packed, None, b, h, w, batch
-                host = torch.empty(packed.shape, dtype=packed.dtype,
-                                   pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
-                return host, done, b, h, w, batch
+            if not graphed:
+                return self._copy_out(self._packed(images), images, batch)
+            with self._graph_lock:
+                packed = self._replay(images, batch)
+                return self._copy_out(packed, images, batch)
+
+    def _copy_out(self, packed: torch.Tensor, images: np.ndarray,
+                  batch: int):
+        """The handle of a batch whose packed result is ``packed``: on a
+        card, its copy into a pinned buffer of its own, enqueued, and the
+        event that marks it done."""
+        b, h, w = images.shape[:3]
+        with profiling.span("dispatch.copy"):
+            if self.device.type != "cuda":
+                return packed, None, b, h, w, batch
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return host, done, b, h, w, batch
 
     def collect_batch(self, handle) -> List[List[Human]]:
         """Wait for a handle from :meth:`estimate_batch_async` and convert
